@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card, `nvcc` and
+PyTorch built for CUDA.  It imports nothing of JAX or of the JAX package.
+
+Phase 0  set-up: the card's name and power limit; builds the CUDA substep
+         kernel from csrc/ (nvcc) and prints the build time and the
+         compiler's register/stack/spill report.
+Phase 1  kernel vs plain version on the card: one substep and five control
+         steps at B = 8192 (= S*K at S=256, K=32) on the full Bez `stl`
+         model, all four asset variants at B=512, a ragged B=1000 and
+         per-env joint limits, at the bars the JAX package holds its TPU
+         kernel to (tests/test_pallas.py).
+Phase 2  standing balance on the kernel: 180 control steps from the ready
+         pose (mean height within 0.015 of 0.325, base_quat.w > 0.99).
+Phase 3  the main path: KickTask(substeps=2) + MPPISolver(H=32, K=32), one
+         solve at S=256, then 20 chained closed-loop ticks (solve, then
+         step_batch) at S=64, with the launch counter read around the ticks
+         and the plain engine disabled; one step_batch through the kernel
+         checked against the plain engine on the card.
+Phase 4  where a tick's time goes: torch.profiler over 3 ticks at S=64,
+         device time by kernel against the wall clock.
+Timings are CUDA-event times on this card.  Every phase asserts; any
+failure exits non-zero.  The last line is the run's result as JSON.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of fn, by CUDA events around reps calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "bez_isaacgym_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository (the "
+              "bez_isaacgym_tpu_torch package is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+
+    import numpy as np
+
+    from bez_isaacgym_tpu_torch import resolve_device
+    from bez_isaacgym_tpu_torch.models import bez
+    from bez_isaacgym_tpu_torch.ops import _build, engine
+    from bez_isaacgym_tpu_torch.ops import substep as ss
+    from bez_isaacgym_tpu_torch.solvers.mppi import MPPIConfig, MPPISolver
+    from bez_isaacgym_tpu_torch.tasks.base import TaskConfig
+    from bez_isaacgym_tpu_torch.tasks.kick import KickTask
+
+    dev = resolve_device("cuda")
+    t_start = time.time()
+
+    # ---------------- phase 0: set-up ---------------------------------------
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.time()
+    _build.load()
+    log(f"phase0 kernel build s={time.time() - t0:.3f}")
+    log(_build.build_log().strip())
+
+    def batch(model, cfg, B, seed, base_z=0.34, kick=False):
+        """States around the ready pose (tests/test_pallas.py:28-45).
+
+        kick: the ball against the left leg's boxes, and random joint, base
+        and ball velocities (as tests/test_torch_substep_host.py draws them).
+        """
+        rng = np.random.default_rng(seed)
+        q0 = bez.pose_vector(model, bez.READY_JOINT_ANGLES).astype(np.float32)
+        q = torch.tensor(q0[None] + rng.uniform(-0.1, 0.1, (B, model.nq)),
+                         dtype=torch.float32, device=dev)
+        kw = {"ball_pos": (0.1, 0.05, 0.085)} if kick else {}
+        st = engine.default_state(model, cfg, q, (0, 0, base_z),
+                                  (0, 0, 0, 1), **kw)
+        if kick:
+            def draw(lo, shape):
+                return torch.tensor(rng.uniform(-lo, lo, shape),
+                                    dtype=torch.float32, device=dev)
+            st = st._replace(qd=draw(0.5, (B, model.nq)),
+                             base_u=draw(0.3, (B, 6)),
+                             ball_vel=draw(1.0, (B, 3)))
+        params = bez.default_dyn_params(model)
+        params = params._replace(**{
+            k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in params._asdict().items()})
+        tg = torch.as_tensor(q0, device=dev).expand(B, model.nq).contiguous()
+        return st, params, tg
+
+    def check_steps(model, cfg, st, params, tg, n_steps, label):
+        """Kernel vs plain step, n_steps control steps, test_pallas bars."""
+        kstep = ss.make_kernel_step_fn(model, cfg)
+        pstep = engine.make_batched_step_fn(model, cfg)
+        a, b = st, st
+        for _ in range(n_steps):
+            a = kstep(params, a, tg)
+            b = pstep(params, b, tg)
+        torch.cuda.synchronize()
+        errs = {f: float((getattr(a, f) - getattr(b, f)).abs().max())
+                for f in ("q", "base_pos", "base_quat", "ball_pos")}
+        assert torch.isfinite(a.q).all() and torch.isfinite(a.qd).all(), label
+        bars = {"q": 2e-3, "base_pos": 2e-3, "base_quat": 5e-3,
+                "ball_pos": 1e-3}
+        for f, bar in bars.items():
+            assert errs[f] <= bar, (label, f, errs[f], bar)
+        # Contact states per sensor slot; per-foot loads (z contact force on
+        # each foot body) within 2 N + 30% on >= 99% of feet.
+        s_k = a.sensor_normal.cpu().numpy()
+        s_p = b.sensor_normal.cpu().numpy()
+        agree = (s_k > 0.5) == (s_p > 0.5)
+        assert agree.mean() >= 0.99, (label, agree.mean())
+        feet = [model.body_index("left_foot"), model.body_index("right_foot")]
+        f_k = a.body_contact_force[:, feet, 2].cpu().numpy()
+        f_p = b.body_contact_force[:, feet, 2].cpu().numpy()
+        ok = np.abs(f_k - f_p) <= 2.0 + 0.3 * np.abs(f_p)
+        assert ok.mean() >= 0.99, (label, ok.mean())
+        log(f"phase1 {label}: max|kernel-plain| "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f" slot_agree={agree.mean():.4f} feet_ok={ok.mean():.4f}")
+        return errs
+
+    # ---------------- phase 1: kernel vs plain ------------------------------
+    stl = bez.load_bez_model("stl")
+    cfg2 = engine.SceneConfig(substeps=2)
+    B_MAIN = 8192
+    st, params, tg = batch(stl, cfg2, B_MAIN, seed=0)
+    tables = ss.KernelTables(stl, cfg2)
+    x = ss.pack_state(st)
+    p = ss.pack_params(stl, params, tg)
+    out_k = ss.substep(tables, x, p)
+    out_p = ss.substep_plain(tables, x, p)
+    torch.cuda.synchronize()
+    n_state = ss.state_rows(stl.nq)
+    max_abs_err = float((out_k[:n_state] - out_p[:n_state]).abs().max())
+    assert torch.isfinite(out_k).all()
+    assert max_abs_err < 1e-3, max_abs_err
+    log(f"phase1 one substep B={B_MAIN}: max|kernel-plain| on the state "
+        f"rows = {max_abs_err:.3e}")
+    check_steps(stl, cfg2, st, params, tg, 5, f"stl B={B_MAIN} 5 steps")
+
+    # The ball against the left leg, everything moving: the ball-vs-box
+    # stage (forces on the robot and on the ball, its spin) is active.
+    st_b, params_b, tg_b = batch(stl, cfg2, B_MAIN, seed=4, kick=True)
+    xb = ss.pack_state(st_b)
+    pb = ss.pack_params(stl, params_b, tg_b)
+    act_b = ss.contact_activity(tables, xb)
+    out_kb = ss.substep(tables, xb, pb)
+    out_pb = ss.substep_plain(tables, xb, pb)
+    torch.cuda.synchronize()
+    err_b = float((out_kb[:n_state] - out_pb[:n_state]).abs().max())
+    assert torch.isfinite(out_kb).all()
+    assert err_b < 1e-3, err_b
+    # The ball is above the ground, so its velocity change beyond gravity
+    # is the boxes' push: nonzero wherever a box touches it.
+    bv = slice(2 * stl.nq + 20, 2 * stl.nq + 23)
+    dv = out_kb[bv] - xb[bv] - tables.h * params_b.gravity[:, None]
+    pushed = int((dv.abs().sum(0) > 1e-4).sum())
+    assert act_b.ball_plane == 0 and act_b.box.sum() > 0, act_b
+    assert pushed > 0, pushed
+    log(f"phase1 ball contact one substep B={B_MAIN}: max|kernel-plain| on "
+        f"the state rows = {err_b:.3e}; active ball-box pairs "
+        f"{int(act_b.box.sum())}, ball pushed by the boxes in {pushed} envs")
+    max_abs_err = max(max_abs_err, err_b)
+    check_steps(stl, cfg2, st_b, params_b, tg_b, 5,
+                f"stl ball contact B={B_MAIN} 5 steps")
+    for variant in ("stl", "box", "box_sensor", "stl_sensor"):
+        m = bez.load_bez_model(variant)
+        s_, p_, t_ = batch(m, cfg2, 512, seed=1)
+        check_steps(m, cfg2, s_, p_, t_, 5, f"{variant} B=512 5 steps")
+    s_, p_, t_ = batch(stl, cfg2, 1000, seed=2)
+    check_steps(stl, cfg2, s_, p_, t_, 5, "stl ragged B=1000 5 steps")
+
+    # Per-env joint limits (tests/test_pallas.py:148-167).
+    s_, p_, _ = batch(stl, cfg2, 256, seed=0)
+    hi = p_.dof_upper.expand(256, stl.nq).clone()
+    hi[0, 2] = s_.q[0, 2]
+    p_ = p_._replace(dof_upper=hi,
+                     dof_lower=p_.dof_lower.expand(256, stl.nq).contiguous())
+    t_up = torch.as_tensor(stl.dof_upper, dtype=torch.float32,
+                           device=dev).expand(256, stl.nq).contiguous()
+    kstep = ss.make_kernel_step_fn(stl, cfg2)
+    s_lim = s_
+    for _ in range(5):
+        s_lim = kstep(p_, s_lim, t_up)
+    q_lim = s_lim.q.cpu().numpy()
+    assert q_lim[0, 2] <= float(hi[0, 2]) + 1e-5, q_lim[0, 2]
+    assert q_lim[1, 2] > float(hi[0, 2]) + 1e-3, q_lim[1, 2]
+    log(f"phase1 per-env joint limits: env0 q2={q_lim[0, 2]:.5f} <= "
+        f"{float(hi[0, 2]):.5f}, env1 q2={q_lim[1, 2]:.5f}")
+
+    # Kernel and plain times at the main path's batch sizes.
+    ms_k = cuda_ms(torch, lambda: ss.substep(tables, x, p), reps=50)
+    ms_p = cuda_ms(torch, lambda: ss.substep_plain(tables, x, p), reps=5,
+                   warmup=1)
+    st64, params64, tg64 = batch(stl, cfg2, 64 * 32, seed=3)
+    x64 = ss.pack_state(st64)
+    p64 = ss.pack_params(stl, params64, tg64)
+    ms_k64 = cuda_ms(torch, lambda: ss.substep(tables, x64, p64), reps=50)
+    bytes_ = ss.bytes_per_env(stl) * B_MAIN
+    terms = ss.flop_terms(tables, ss.contact_activity(tables, x))
+    flops = sum(terms.values())
+    log("phase1 flops B=" + str(B_MAIN) + " by stage: " + " ".join(
+        f"{k}={v}" for k, v in terms.items()))
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"phase1 timing B={B_MAIN}: kernel_ms={ms_k:.4f} plain_ms={ms_p:.3f}"
+        f" | B=2048: kernel_ms={ms_k64:.4f}")
+    log(f"phase1 bound B={B_MAIN}: bytes={bytes_} ({t_bytes * 1e3:.2f} us at "
+        f"3.35 TB/s) flops={flops} ({t_ops * 1e3:.2f} us at 67 TFLOP/s fp32)"
+        f" -> bound_ms={bound_ms:.5f} ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms_k:.2f}% of bound")
+
+    # ---------------- phase 2: standing balance -----------------------------
+    s_, p_, t_ = batch(stl, cfg2, 256, seed=0)
+    for _ in range(180):
+        s_ = kstep(p_, s_, t_)
+    h = s_.base_pos[:, 2].cpu().numpy()
+    assert not np.isnan(s_.q.cpu().numpy()).any()
+    assert abs(h.mean() - bez.READY_HEIGHT) < 0.015, h.mean()
+    assert (s_.base_quat[:, 3].cpu().numpy() > 0.99).all()
+    log(f"phase2 standing 180 steps: mean height {h.mean():.4f} "
+        f"(ready {bez.READY_HEIGHT}), min quat w "
+        f"{float(s_.base_quat[:, 3].min()):.5f}")
+
+    # ---------------- phase 3: the main path --------------------------------
+    H, K = 32, 32
+    task = KickTask(TaskConfig(substeps=2), device="cuda")
+    solver = MPPISolver(task, MPPIConfig(horizon=H, num_samples=K))
+    assert hasattr(task._step_physics_batch, "tables"), "kernel not selected"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # The step of one tick through the kernel vs the plain engine.
+    env = task.reset(gen, 64)
+    acts = 0.2 * torch.randn((64, 18), generator=gen, device=dev)
+    plain_task = KickTask(TaskConfig(substeps=2, use_kernel=False),
+                          device="cuda")
+    o_k = task.step_batch(env, acts,
+                          torch.Generator(device=dev).manual_seed(1))
+    o_p = plain_task.step_batch(env, acts,
+                                torch.Generator(device=dev).manual_seed(1))
+    err_tick = float((o_k.state.physics.q - o_p.state.physics.q).abs().max())
+    err_rew = float((o_k.reward - o_p.reward).abs().max())
+    assert err_tick <= 2e-3 and err_rew <= 1e-2, (err_tick, err_rew)
+    assert torch.equal(o_k.done, o_p.done)
+    log(f"phase3 step_batch kernel vs plain S=64: max|dq|={err_tick:.3e} "
+        f"max|dreward|={err_rew:.3e}")
+
+    # No plain physics from here on: the plain substep raises if reached.
+    real_substep = engine.substep
+
+    def plain_forbidden(*a, **k):
+        raise AssertionError("the plain engine ran on the main path")
+
+    engine.substep = plain_forbidden
+    try:
+        S_TP = 256
+        env = task.reset(gen, S_TP)
+        mppi = solver.init_state(S_TP)
+        ss.substep.launches = 0
+        act, mppi2, info = solver.solve(env, mppi, gen)
+        torch.cuda.synchronize()
+        assert ss.substep.launches == H * cfg2.substeps, ss.substep.launches
+        assert act.shape == (S_TP, 18) and torch.isfinite(act).all()
+        assert torch.isfinite(info["best_score"]).all()
+        ms_solve = cuda_ms(torch, lambda: solver.solve(env, mppi2, gen),
+                           reps=3, warmup=1)
+        solves_per_s = S_TP / (ms_solve / 1e3)
+        log(f"phase3 throughput S={S_TP} K={K} H={H}: ms_per_solve="
+            f"{ms_solve:.2f} solves_per_s={solves_per_s:.1f}")
+
+        S_LAT, N_TICKS = 64, 20
+        env = task.reset(gen, S_LAT)
+        mppi = solver.init_state(S_LAT)
+        torch.cuda.synchronize()
+        ss.substep.launches = 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t_host = time.time()
+        e0.record()
+        for _ in range(N_TICKS):
+            act, mppi, info = solver.solve(env, mppi, gen)
+            out = task.step_batch(env, act, gen)
+            env = out.state
+        e1.record()
+        torch.cuda.synchronize()
+        t_host = time.time() - t_host
+        launches = ss.substep.launches
+        expect = N_TICKS * (H * cfg2.substeps + cfg2.substeps)
+        assert launches == expect, (launches, expect)
+        assert torch.isfinite(act).all() and act.shape == (S_LAT, 18)
+        assert torch.isfinite(info["best_score"]).all()
+        assert torch.isfinite(out.reward).all()
+        assert torch.isfinite(env.physics.q).all()
+        ms_tick = e0.elapsed_time(e1) / N_TICKS
+        log(f"phase3 latency S={S_LAT}: {N_TICKS} chained ticks, "
+            f"ms_per_tick={ms_tick:.2f} (host clock {1e3 * t_host / N_TICKS:.2f}"
+            f"), launches={launches} (expected {expect}), "
+            f"mean height {float(env.physics.base_pos[:, 2].mean()):.4f}, "
+            f"done {int(out.done.sum())}/{S_LAT}")
+    finally:
+        engine.substep = real_substep
+
+    # ---------------- phase 4: where a tick's time goes ---------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    N_PROF = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_prof = time.time()
+        for _ in range(N_PROF):
+            act, mppi, info = solver.solve(env, mppi, gen)
+            env = task.step_batch(env, act, gen).state
+        torch.cuda.synchronize()
+        t_prof = time.time() - t_prof
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total_us = sum(dev_us(e) for e in dev_events)
+    wall_ms = 1e3 * t_prof / N_PROF
+    if total_us > 0:
+        sub_us = sum(dev_us(e) for e in dev_events
+                     if "bez_substep_kernel" in e.key)
+        n_kern = sum(e.count for e in dev_events) / N_PROF
+        dev_ms = total_us / 1e3 / N_PROF
+        log(f"phase4 profile S={S_LAT}, {N_PROF} ticks under the profiler: "
+            f"wall_ms_per_tick={wall_ms:.2f} device_ms_per_tick="
+            f"{dev_ms:.2f} substep_kernel_ms_per_tick="
+            f"{sub_us / 1e3 / N_PROF:.2f} other_kernels_ms_per_tick="
+            f"{(total_us - sub_us) / 1e3 / N_PROF:.2f} "
+            f"kernels_per_tick={n_kern:.0f} idle_share="
+            f"{1 - dev_ms / wall_ms:.3f}")
+        for e in sorted(dev_events, key=dev_us, reverse=True)[:8]:
+            log(f"phase4   {dev_us(e) / 1e3 / N_PROF:8.3f} ms/tick "
+                f"{e.count / N_PROF:6.0f}x  {e.key[:90]}")
+    else:
+        log(f"phase4 profile: the profiler reported no device time; "
+            f"device split not measured (wall_ms_per_tick={wall_ms:.2f})")
+
+    kernels = [{
+        "name": "substep",
+        "route": "cuda",
+        "source": "bez_isaacgym_tpu_torch/csrc/substep.cu",
+        "replaces": "bez_isaacgym_tpu/ops/pallas_step.py:126",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms_k,
+        "plain_ms": ms_p,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]
+    log(f"chip_smoke total s={time.time() - t_start:.1f}")
+    assert all(math.isfinite(k["ms"]) for k in kernels)
+    log(json.dumps({"kernels": kernels}))
+    log(card_line())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

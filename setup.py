@@ -7,9 +7,11 @@ setup(
     version="0.1.0",
     description=("TPU-native simulation, MPC and RL framework for the Bez "
                  "humanoid (JAX/XLA re-design of Bez_IsaacGym)"),
-    packages=find_packages(include=["bez_isaacgym_tpu*"]),
+    packages=find_packages(include=["bez_isaacgym_tpu*",
+                                    "bez_isaacgym_tpu_torch*"]),
     package_data={"bez_isaacgym_tpu": ["assets/*.json",
-                                       "assets/trajectories/*.json"]},
+                                       "assets/trajectories/*.json"],
+                  "bez_isaacgym_tpu_torch": ["assets/*.json", "csrc/*"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "scipy", "einops",

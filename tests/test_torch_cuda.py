@@ -1,0 +1,95 @@
+"""CUDA-only checks of the substep kernel; they skip without a CUDA device.
+
+Run on the GPU with
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+(`--noconftest`: tests/conftest.py imports JAX, which the port's GPU
+machine need not have).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from bez_isaacgym_tpu_torch.models import bez  # noqa: E402
+from bez_isaacgym_tpu_torch.ops import engine  # noqa: E402
+from bez_isaacgym_tpu_torch.ops import substep as ss  # noqa: E402
+from bez_isaacgym_tpu_torch.tasks.base import TaskConfig  # noqa: E402
+from bez_isaacgym_tpu_torch.tasks.kick import KickTask  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _buffers(model, cfg, B, dev, kick=False):
+    """States around the ready pose; kick: the ball against the left leg's
+    boxes and random joint, base and ball velocities."""
+    rng = np.random.default_rng(B)
+    q0 = bez.pose_vector(model, bez.READY_JOINT_ANGLES)
+    q = torch.tensor(q0[None] + rng.uniform(-0.1, 0.1, (B, 18)),
+                     dtype=torch.float32, device=dev)
+    kw = {"ball_pos": (0.1, 0.05, 0.085)} if kick else {}
+    st = engine.default_state(model, cfg, q, (0, 0, 0.33), (0, 0, 0, 1),
+                              **kw)
+    if kick:
+        def draw(lo, shape):
+            return torch.tensor(rng.uniform(-lo, lo, shape),
+                                dtype=torch.float32, device=dev)
+        st = st._replace(qd=draw(0.5, (B, 18)), base_u=draw(0.3, (B, 6)),
+                         ball_vel=draw(1.0, (B, 3)))
+    tg = torch.as_tensor(q0, dtype=torch.float32, device=dev).expand(B, 18)
+    return (ss.pack_state(st),
+            ss.pack_params(model, bez.default_dyn_params(model),
+                           tg.contiguous()))
+
+
+@pytest.mark.parametrize("B", [512, 1000])
+@pytest.mark.parametrize("variant", ["stl", "box", "box_sensor",
+                                     "stl_sensor"])
+def test_kernel_matches_plain(cuda, variant, B):
+    model = bez.load_bez_model(variant)
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    x, p = _buffers(model, cfg, B, cuda)
+    before = ss.substep.launches
+    out = ss.substep(tables, x, p)
+    torch.cuda.synchronize()
+    assert ss.substep.launches == before + 1
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(model.nq)
+    # One substep from the same inputs (f32 on both; FMA contraction and
+    # summation order differ): 1e-3 on the state rows.
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+
+
+def test_kernel_matches_plain_with_the_ball_against_the_leg(cuda):
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    x, p = _buffers(model, cfg, 1024, cuda, kick=True)
+    assert ss.contact_activity(tables, x).box.sum() > 0
+    out = ss.substep(tables, x, p)
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(model.nq)
+    # The bar of test_kernel_matches_plain, now with ball-box forces, the
+    # ball's spin and every velocity nonzero.
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+
+
+def test_task_on_cuda_steps_through_the_kernel(cuda):
+    task = KickTask(TaskConfig(substeps=2), device="cuda")
+    assert hasattr(task._step_physics_batch, "tables")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    env = task.reset(gen, 8)
+    before = ss.substep.launches
+    out = task.step_batch(env, torch.zeros((8, 18), device=cuda), gen)
+    torch.cuda.synchronize()
+    assert ss.substep.launches == before + 2
+    assert torch.isfinite(out.obs).all()

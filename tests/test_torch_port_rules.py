@@ -1,0 +1,156 @@
+"""Rules of the PyTorch port, checked without a GPU.
+
+- No file of `bez_isaacgym_tpu_torch/`, and not `chip_smoke.py`, imports
+  `jax` or the JAX package `bez_isaacgym_tpu`.
+- The port's copies of the robot specs are byte-identical to the JAX
+  package's.
+- Entry points default to the CUDA device, and without one they raise
+  instead of running on the CPU; CPU tensors take the plain path only
+  because they lie on the CPU.
+"""
+
+import ast
+import dataclasses
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from bez_isaacgym_tpu_torch import resolve_device  # noqa: E402
+from bez_isaacgym_tpu_torch.models import bez  # noqa: E402
+from bez_isaacgym_tpu_torch.ops import engine  # noqa: E402
+from bez_isaacgym_tpu_torch.ops import substep as ss  # noqa: E402
+from bez_isaacgym_tpu_torch.tasks.base import BezTask, TaskConfig  # noqa: E402
+from bez_isaacgym_tpu_torch.tasks.kick import KickTask  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "bez_isaacgym_tpu_torch"
+# Sources only: build/ holds generated kernel libraries, not package code.
+PORT_FILES = sorted(p for p in PORT.rglob("*.py")
+                    if (PORT / "build") not in p.parents) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bez_isaacgym_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("variant", ["stl", "box", "box_sensor",
+                                     "stl_sensor"])
+def test_asset_copies_are_byte_identical(variant):
+    name = f"bez_{variant}.json"
+    port = (PORT / "assets" / name).read_bytes()
+    ref = (ROOT / "bez_isaacgym_tpu" / "assets" / name).read_bytes()
+    assert port == ref
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (KickTask.__init__, BezTask.__init__, resolve_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_gpu_raises_instead_of_running_on_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KickTask(TaskConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+
+
+def test_cpu_task_uses_the_plain_engine():
+    task = KickTask(TaskConfig(substeps=1), device="cpu")
+    assert not hasattr(task._step_physics_batch, "tables")
+    assert task.default_dof_pos.device.type == "cpu"
+
+
+def test_substep_rejects_what_it_does_not_take():
+    model = bez.load_bez_model("stl")
+    tables = ss.KernelTables(model, engine.SceneConfig(substeps=2))
+    B = 3
+    x = torch.zeros(ss.state_rows(model.nq), B)
+    p = torch.zeros(ss.param_rows(model.nq, model.nb), B)
+    with pytest.raises(TypeError):
+        ss.substep(tables, x.double(), p)
+    with pytest.raises(ValueError):
+        ss.substep(tables, x[:-1], p)
+    with pytest.raises(ValueError):
+        ss.substep(tables, torch.zeros(B, ss.state_rows(model.nq)).t(), p)
+    with pytest.raises(ValueError):
+        ss.substep(tables, x, p[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        ss.substep(tables, x.to("meta"), p.to("meta"))
+    with pytest.raises(ValueError, match="B = 0"):
+        ss.substep(tables, x[:, :0], p[:, :0])
+
+
+def test_cpu_substep_takes_the_plain_version_without_launching():
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    q = torch.as_tensor(bez.pose_vector(model, bez.READY_JOINT_ANGLES),
+                        dtype=torch.float32).expand(2, 18)
+    st = engine.default_state(model, cfg, q, (0, 0, 0.34), (0, 0, 0, 1))
+    x = ss.pack_state(st)
+    p = ss.pack_params(model, bez.default_dyn_params(model), q.contiguous())
+    before = ss.substep.launches
+    out = ss.substep(tables, x, p)
+    assert ss.substep.launches == before
+    torch.testing.assert_close(out, ss.substep_plain(tables, x, p))
+
+
+def test_model_over_capacity_is_refused():
+    model = bez.load_bez_model("box_sensor")
+    big = dataclasses.replace(
+        model, cpoint_body=np.concatenate([model.cpoint_body] * 2))
+    with pytest.raises(ValueError, match="capacity"):
+        ss.KernelTables(big, engine.SceneConfig())
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_bytes(
+        (ROOT / "chip_smoke.py").read_bytes())
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
