@@ -71,9 +71,11 @@ def build_log() -> str:
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library and declare its C entries."""
     lib = ctypes.CDLL(str(build()))
-    lib.bez_substep_launch.argtypes = [ctypes.c_void_p] * 4 + [
+    lib.bez_substep_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.bez_substep_launch.restype = ctypes.c_int
+    lib.bez_substep_config.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.bez_substep_config.restype = ctypes.c_int
     lib.bez_substep_tables_size.argtypes = []
     lib.bez_substep_tables_size.restype = ctypes.c_int
     return lib

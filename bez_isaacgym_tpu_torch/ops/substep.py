@@ -1,9 +1,10 @@
 """The physics substep as a hand-written CUDA kernel, and its plain version.
 
 Replaces the TPU kernel `_substep_kernel` / `make_pallas_step_fn` of
-`bez_isaacgym_tpu/ops/pallas_step.py`.  The kernel (`csrc/substep.cu`, body
-in `csrc/substep_body.cuh`) runs one substep for one env per thread on
-(rows, B) float32 structure-of-arrays buffers:
+`bez_isaacgym_tpu/ops/pallas_step.py`.  The kernel (`csrc/substep.cu`,
+schedule in `csrc/substep_body.cuh`) runs one substep for one env per warp,
+its state in shared memory, on (rows, B) float32 structure-of-arrays
+buffers:
 
 - state_in  (2 nq + 26, B): q, qd, base_pos, base_quat, base_u, ball_pos,
   ball_quat, ball_vel, ball_ang;
@@ -36,6 +37,9 @@ Tensor = torch.Tensor
 
 # Capacities of the C struct (csrc/substep_body.cuh).
 MAX_NB, MAX_NC, MAX_BOX = 24, 256, 32
+MAX_NV = MAX_NB - 1 + 6
+MAX_SLOT, MAX_ITEM = MAX_NB * MAX_NV, MAX_NV * (MAX_NV + 1) // 2 + MAX_NV
+MAX_PAIR, MAX_CHOL, MAX_BACK = 2048, 512, 320
 
 _F3 = ctypes.c_float * 3
 _F9 = ctypes.c_float * 9
@@ -45,22 +49,112 @@ class _Tables(ctypes.Structure):
     """Mirror of `struct SubstepTables` in csrc/substep_body.cuh."""
 
     _fields_ = (
-        [(n, ctypes.c_int) for n in ("nb", "nq", "nc", "nbox", "has_ball")]
+        [(n, ctypes.c_int) for n in ("nb", "nq", "nc", "nbox", "has_ball",
+                                     "n_level", "n_slot", "n_item",
+                                     "n_limb", "n_chol_step",
+                                     "n_back_step")]
         + [(n, ctypes.c_float) for n in (
             "h", "kn", "cn", "vt_eps", "ball_kn", "ball_cn", "ball_radius",
             "ball_mass", "ball_inertia", "ball_rolling_friction",
             "max_joint_vel", "max_base_lin_vel", "max_base_ang_vel",
             "max_ball_vel", "friction_vel_scale")]
         + [("parent", ctypes.c_int * MAX_NB),
-           ("anc_mask", ctypes.c_uint * MAX_NB),
+           ("level_off", ctypes.c_int * (MAX_NB + 1)),
+           ("level_body", ctypes.c_int * MAX_NB),
+           ("cp_off", ctypes.c_int * (MAX_NB + 1)),
+           ("limb_off", ctypes.c_int * (MAX_NB + 1)),
+           ("chol_off", ctypes.c_int * (MAX_NB + 1)),
+           ("chol_item", ctypes.c_int * MAX_CHOL),
+           ("back_off", ctypes.c_int * (MAX_NB + 1)),
+           ("back_item", ctypes.c_int * MAX_BACK),
+           ("slot_code", ctypes.c_int * MAX_SLOT),
+           ("item_dst", ctypes.c_int * MAX_ITEM),
+           ("item_col", ctypes.c_int * MAX_ITEM),
+           ("item_joint", ctypes.c_int * MAX_ITEM),
+           ("item_off", ctypes.c_int * (MAX_ITEM + 1)),
+           ("pair", ctypes.c_int * MAX_PAIR),
            ("tree_pos", _F3 * MAX_NB), ("tree_rot", _F9 * MAX_NB),
            ("axis", _F3 * MAX_NB), ("com", _F3 * MAX_NB),
            ("mass", ctypes.c_float * MAX_NB), ("inertia", _F9 * MAX_NB),
-           ("cp_body", ctypes.c_int * MAX_NC),
            ("cp_sensor", ctypes.c_int * MAX_NC),
            ("cp_pos", _F3 * MAX_NC),
            ("box_body", ctypes.c_int * MAX_BOX), ("box_pos", _F3 * MAX_BOX),
            ("box_rot", _F9 * MAX_BOX), ("box_half", _F3 * MAX_BOX)])
+
+
+def _schedule(model: RobotModel, mask: np.ndarray) -> dict:
+    """The kernel's work lists for one model (see SubstepTables).
+
+    Slots: every (body, Jacobian column) pair.  Items: every H entry that
+    some body or a DOF's diagonal term fills, and every right-hand side
+    row, each with its terms in body order, sorted by descending term
+    count.  Limbs: the DOF ranges below each child of the base; the kernel
+    needs each limb's DOFs to be consecutive.  The steps of the limbs'
+    elimination and back substitution, every limb side by side.
+    """
+    nb, nq = model.nb, model.nq
+    nv = nq + 6
+    active = np.concatenate([np.ones((nb, 6), bool), mask], axis=1)
+    slot_of, slot_code = {}, []
+    for b in range(nb):
+        for c in np.flatnonzero(active[b]):
+            slot_of[b, int(c)] = len(slot_code)
+            slot_code.append(b | int(c) << 8)
+
+    def unperm(p):
+        return 6 + p if p < nq else p - nq
+
+    items = []                    # (dst, col, joint, pairs)
+    for p in range(nv):
+        for q in range(p + 1):
+            c1, c2 = sorted((unperm(p), unperm(q)))
+            pairs = [b | slot_of[b, c2] << 16 for b in range(nb)
+                     if active[b, c1] and active[b, c2]]
+            joint = p if p == q and p < nq else -1
+            if pairs or joint >= 0:
+                items.append((p * (p + 1) // 2 + q, c1, joint, pairs))
+    for c in range(nv):
+        items.append((nv * (nv + 1) // 2 + (nq + c if c < 6 else c - 6), c,
+                      c - 6 if c >= 6 else -1,
+                      [b | b << 16 for b in range(nb)
+                       if active[b, c]]))
+    items.sort(key=lambda it: -len(it[3]))
+
+    root = []                     # the base's child above each DOF's body
+    for d in range(nq):
+        b = d + 1
+        while model.parent[b] != 0:
+            b = model.parent[b]
+        root.append(b)
+    starts = [d for d in range(nq) if d == 0 or root[d] != root[d - 1]]
+    if len(starts) != len(set(root)):
+        raise ValueError(f"model {model.name}: a limb's DOFs are not "
+                         "consecutive")
+    limbs = list(zip(starts, starts[1:] + [nq]))
+    steps = max((e - a for a, e in limbs), default=0)
+    chol_off, chol_item, back_off, back_item = [0], [], [0], []
+    for t in range(steps):
+        for a, e in limbs:
+            if e - a > t:
+                j = a + t
+                chol_item += [j | r << 8 | min(r, e - 1) << 16
+                              for r in [*range(j, e), *range(nq, nv)]]
+        chol_off.append(len(chol_item))
+    for t in reversed(range(steps)):
+        for a, e in limbs:
+            if e - a > t:
+                back_item += [(a + t) | k << 8 for k in range(a, a + t + 1)]
+        back_off.append(len(back_item))
+    return {"slot_code": slot_code,
+            "item_dst": [it[0] for it in items],
+            "item_col": [it[1] for it in items],
+            "item_joint": [it[2] for it in items],
+            "item_off": np.concatenate(
+                [[0], np.cumsum([len(it[3]) for it in items])]),
+            "pair": [pr for it in items for pr in it[3]],
+            "limb_off": starts + [nq],
+            "chol_off": chol_off, "chol_item": chol_item,
+            "back_off": back_off, "back_item": back_item}
 
 
 def state_rows(nq: int) -> int:
@@ -94,9 +188,31 @@ class KernelTables:
         self.model, self.cfg = model, cfg
         self.h = cfg.dt / cfg.substeps
         self.mask = kin.ancestor_mask(model)
+        # Contact points sorted by body (stably, so each body sums its own
+        # in the original order); a sensor slot must lie on one body, so
+        # that one lane sums it.
+        cp_body = np.asarray(model.cpoint_body, dtype=np.int64)
+        cp_order = np.argsort(cp_body, kind="stable")
+        for slot in set(np.asarray(model.cpoint_sensor).tolist()) - {-1}:
+            if len(set(cp_body[np.asarray(model.cpoint_sensor) == slot])) > 1:
+                raise ValueError(f"model {model.name}: sensor slot {slot} "
+                                 "spans several bodies")
+        depth = np.zeros(nb, dtype=np.int64)
+        for b in range(1, nb):
+            depth[b] = depth[model.parent[b]] + 1
+        sched = _schedule(model, self.mask)
+        if len(sched["pair"]) > MAX_PAIR:
+            raise ValueError(
+                f"model {model.name} exceeds the kernel's capacity "
+                f"(H and rhs terms {len(sched['pair'])}/{MAX_PAIR})")
         co = cfg.coeffs
         t = _Tables(
             nb=nb, nq=nq, nc=nc, nbox=nbox, has_ball=int(cfg.has_ball),
+            n_level=int(depth.max()) + 1, n_slot=len(sched["slot_code"]),
+            n_item=len(sched["item_dst"]),
+            n_limb=len(sched["limb_off"]) - 1,
+            n_chol_step=len(sched["chol_off"]) - 1,
+            n_back_step=len(sched["back_off"]) - 1,
             h=self.h, kn=co.kn, cn=co.cn, vt_eps=co.vt_eps,
             ball_kn=co.ball_kn, ball_cn=co.ball_cn,
             ball_radius=cfg.ball_radius, ball_mass=cfg.ball_mass,
@@ -114,8 +230,12 @@ class KernelTables:
             arr[:len(values)] = values
 
         fill("parent", model.parent)
-        fill("anc_mask", [sum(1 << d for d in range(nq) if self.mask[b, d])
-                          for b in range(nb)])
+        fill("level_off", np.searchsorted(np.sort(depth),
+                                          np.arange(depth.max() + 2)))
+        fill("level_body", np.argsort(depth, kind="stable"))
+        fill("cp_off", np.searchsorted(cp_body[cp_order], np.arange(nb + 1)))
+        for field, values in sched.items():
+            fill(field, values)
         fill("tree_pos", model.tree_pos)
         fill("tree_rot", model.tree_rot.reshape(nb, 9))
         fill("axis", model.axis)
@@ -123,9 +243,8 @@ class KernelTables:
         fill("mass", model.mass)
         fill("inertia", model.inertia.reshape(nb, 9))
         if nc:
-            fill("cp_body", model.cpoint_body)
-            fill("cp_sensor", model.cpoint_sensor)
-            fill("cp_pos", model.cpoint_pos)
+            fill("cp_sensor", np.asarray(model.cpoint_sensor)[cp_order])
+            fill("cp_pos", np.asarray(model.cpoint_pos)[cp_order])
         if nbox:
             fill("box_body", model.box_body)
             fill("box_pos", model.box_pos)
@@ -185,6 +304,7 @@ def substep(tables: KernelTables, state_in: Tensor,
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.bez_substep_launch(tables.on(dev, lib).data_ptr(),
+                                ctypes.addressof(tables.struct),
                                 state_in.data_ptr(), params_in.data_ptr(),
                                 out.data_ptr(), B, stream)
     if rc != 0:
@@ -194,6 +314,27 @@ def substep(tables: KernelTables, state_in: Tensor,
 
 
 substep.launches = 0
+
+
+class LaunchConfig(NamedTuple):
+    """How the kernel is launched for one model on the current card."""
+
+    envs_per_block: int
+    threads_per_block: int
+    shared_bytes_per_block: int
+    blocks_per_sm: int          # resident, by the CUDA occupancy calculator
+
+
+def launch_config(tables: KernelTables) -> LaunchConfig:
+    """The kernel's launch configuration and occupancy for `tables`' model
+    (builds the kernel; needs a CUDA device)."""
+    lib = _build.load()
+    cfg = (ctypes.c_int * 4)()
+    rc = lib.bez_substep_config(ctypes.addressof(tables.struct), cfg)
+    if rc != 0:
+        raise RuntimeError(f"substep kernel configuration failed: "
+                           f"cudaError {rc}")
+    return LaunchConfig(*cfg)
 
 
 # ---------------------------------------------------------------------------

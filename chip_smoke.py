@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with a CUDA card, `nvcc` and
 PyTorch built for CUDA.  It imports nothing of JAX or of the JAX package.
 
 Phase 0  set-up: the card's name and power limit; builds the CUDA substep
-         kernel from csrc/ (nvcc) and prints the build time and the
-         compiler's register/stack/spill report.
+         kernel from csrc/ (nvcc) and prints the build time, the
+         compiler's register/stack/spill report, and the launch
+         configuration (envs and threads per block, shared bytes per block,
+         blocks resident per SM) with the blocks B=8192 and B=2048 give.
 Phase 1  kernel vs plain version on the card: one substep and five control
          steps at B = 8192 (= S*K at S=256, K=32) on the full Bez `stl`
          model, all four asset variants at B=512, a ragged B=1000 and
@@ -101,6 +103,17 @@ def main() -> int:
     _build.load()
     log(f"phase0 kernel build s={time.time() - t0:.3f}")
     log(_build.build_log().strip())
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lc = ss.launch_config(ss.KernelTables(bez.load_bez_model("stl"),
+                                          engine.SceneConfig(substeps=2)))
+    assert lc.blocks_per_sm >= 1, lc
+    log(f"phase0 launch Bez stl: envs_per_block={lc.envs_per_block} "
+        f"threads_per_block={lc.threads_per_block} shared_bytes_per_block="
+        f"{lc.shared_bytes_per_block} blocks_per_sm={lc.blocks_per_sm} "
+        f"(occupancy calculator) SMs={n_sm}; blocks at B=8192: "
+        f"{-(-8192 // lc.envs_per_block)}, at B=2048: "
+        f"{-(-2048 // lc.envs_per_block)} (resident at once: "
+        f"{lc.blocks_per_sm * n_sm})")
 
     def batch(model, cfg, B, seed, base_z=0.34, kick=False):
         """States around the ready pose (tests/test_pallas.py:28-45).
@@ -238,6 +251,12 @@ def main() -> int:
     x64 = ss.pack_state(st64)
     p64 = ss.pack_params(stl, params64, tg64)
     ms_k64 = cuda_ms(torch, lambda: ss.substep(tables, x64, p64), reps=50)
+    err64 = float((ss.substep(tables, x64, p64)[:n_state]
+                   - ss.substep_plain(tables, x64, p64)[:n_state]).abs().max())
+    assert err64 < 1e-3, err64
+    max_abs_err = max(max_abs_err, err64)
+    log(f"phase1 one substep B=2048: max|kernel-plain| on the state rows = "
+        f"{err64:.3e}")
     bytes_ = ss.bytes_per_env(stl) * B_MAIN
     terms = ss.flop_terms(tables, ss.contact_activity(tables, x))
     flops = sum(terms.values())
@@ -247,8 +266,8 @@ def main() -> int:
     t_ops = flops / PEAK_FP32_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"phase1 timing B={B_MAIN}: kernel_ms={ms_k:.4f} plain_ms={ms_p:.3f}"
-        f" | B=2048: kernel_ms={ms_k64:.4f}")
+    log(f"phase1 timing B={B_MAIN}: kernel_ms={ms_k:.5f} plain_ms={ms_p:.3f}"
+        f" | B=2048: kernel_ms={ms_k64:.5f}")
     log(f"phase1 bound B={B_MAIN}: bytes={bytes_} ({t_bytes * 1e3:.2f} us at "
         f"3.35 TB/s) flops={flops} ({t_ops * 1e3:.2f} us at 67 TFLOP/s fp32)"
         f" -> bound_ms={bound_ms:.5f} ({bound_by}); kernel at "
@@ -370,13 +389,18 @@ def main() -> int:
                      if "bez_substep_kernel" in e.key)
         n_kern = sum(e.count for e in dev_events) / N_PROF
         dev_ms = total_us / 1e3 / N_PROF
+        # Two idle shares: against the profiled wall, which includes the
+        # tracing's own cost (an upper bound), and against phase 3's
+        # unprofiled tick.
         log(f"phase4 profile S={S_LAT}, {N_PROF} ticks under the profiler: "
             f"wall_ms_per_tick={wall_ms:.2f} device_ms_per_tick="
             f"{dev_ms:.2f} substep_kernel_ms_per_tick="
             f"{sub_us / 1e3 / N_PROF:.2f} other_kernels_ms_per_tick="
             f"{(total_us - sub_us) / 1e3 / N_PROF:.2f} "
-            f"kernels_per_tick={n_kern:.0f} idle_share="
-            f"{1 - dev_ms / wall_ms:.3f}")
+            f"kernels_per_tick={n_kern:.0f} idle_share_profiled="
+            f"{1 - dev_ms / wall_ms:.3f} idle_share_unprofiled="
+            f"{1 - dev_ms / ms_tick:.3f} (phase 3 ms_per_tick="
+            f"{ms_tick:.2f})")
         for e in sorted(dev_events, key=dev_us, reverse=True)[:8]:
             log(f"phase4   {dev_us(e) / 1e3 / N_PROF:8.3f} ms/tick "
                 f"{e.count / N_PROF:6.0f}x  {e.key[:90]}")
@@ -396,6 +420,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "ms_b2048": ms_k64,
+        "envs_per_block": lc.envs_per_block,
     }]
     log(f"chip_smoke total s={time.time() - t_start:.1f}")
     assert all(math.isfinite(k["ms"]) for k in kernels)

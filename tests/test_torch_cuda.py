@@ -69,6 +69,24 @@ def test_kernel_matches_plain(cuda, variant, B):
     assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
 
 
+@pytest.mark.parametrize("size", ["1", "E+1", "2048"])
+def test_kernel_matches_plain_at_block_edges(cuda, size):
+    """One env (a block of one warp), one env past a full block (a ragged
+    block of one), and the S=64 tick's batch of 2048."""
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    E = ss.launch_config(tables).envs_per_block
+    B = {"1": 1, "E+1": E + 1, "2048": 2048}[size]
+    x, p = _buffers(model, cfg, B, cuda, kick=True)
+    out = ss.substep(tables, x, p)
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(model.nq)
+    assert torch.isfinite(out).all()
+    # The bar of test_kernel_matches_plain.
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+
+
 def test_kernel_matches_plain_with_the_ball_against_the_leg(cuda):
     model = bez.load_bez_model("stl")
     cfg = engine.SceneConfig(substeps=2)

@@ -134,6 +134,17 @@ def test_model_over_capacity_is_refused():
         ss.KernelTables(big, engine.SceneConfig())
 
 
+def test_model_with_interleaved_limbs_is_refused():
+    """The kernel eliminates each limb's DOFs as one consecutive block: a
+    tree whose limbs interleave in DOF order is refused, not mis-solved."""
+    model = bez.load_bez_model("stl")
+    parent = np.array(model.parent)
+    parent[4] = 1                   # DOF 3 joins the limb of DOFs 0-1
+    with pytest.raises(ValueError, match="consecutive"):
+        ss.KernelTables(dataclasses.replace(model, parent=parent),
+                        engine.SceneConfig())
+
+
 def _run_smoke(cwd):
     env = dict(os.environ)
     env["CUDA_VISIBLE_DEVICES"] = ""

@@ -1,11 +1,18 @@
-"""The CUDA kernel's per-env body, compiled for the host, against the plain
+"""The CUDA kernel's warp schedule, compiled for the host, against the plain
 version.
 
-`csrc/substep_body.cuh` is `__host__ __device__`; a small C shim loops it
-over the envs, built with g++ and loaded with ctypes.  This holds the
-kernel's arithmetic (FK, contacts, mass matrix, joints-first Cholesky,
-integration) against `substep_plain` on the CPU, where no CUDA compiler
-exists.  The g++ build is test-only; the package builds the .cu with nvcc.
+`csrc/substep_body.cuh` is `__host__ __device__`.  A small C shim runs it as
+the kernel does, block by block of BEZ_ENVS_PER_BLOCK envs: it stages the
+block's input rows into the env tiles (`bez_stage_in`, every thread of the
+block in turn), runs the lane
+schedule of each env (`bez_substep_warp`) with one thread walking every lane
+block's items in turn, forward or last to first, and writes the output rows
+back (`bez_stage_out`).  The tiles start as NaN, so a read of scratch that
+no earlier block wrote shows in the output.  Built with g++ and loaded with
+ctypes, this holds the kernel's arithmetic (FK, contacts, mass matrix,
+joints-first Cholesky, integration) against `substep_plain` on the CPU,
+where no CUDA compiler exists.  The g++ build is test-only; the package
+builds the .cu with nvcc.
 """
 
 import ctypes
@@ -25,12 +32,30 @@ from bez_isaacgym_tpu_torch.ops import substep as ss  # noqa: E402
 from test_pallas_interpret import make_chain_model  # noqa: E402
 
 SHIM = r"""
+#include <math.h>
+#include <vector>
 #include "substep_body.cuh"
 extern "C" int tables_size() { return (int)sizeof(SubstepTables); }
+extern "C" int envs_per_block() { return BEZ_ENVS_PER_BLOCK; }
 extern "C" void substep_host(const void* t, const float* s, const float* p,
-                             float* o, int B) {
-  for (int i = 0; i < B; ++i)
-    bez_substep_env(*(const SubstepTables*)t, s, p, o, i, B);
+                             float* o, int B, int reverse) {
+  const SubstepTables& M = *(const SubstepTables*)t;
+  const Layout L = bez_layout(M);
+  const int E = BEZ_ENVS_PER_BLOCK;
+  std::vector<float> tiles((size_t)E * L.size);
+  for (int env0 = 0; env0 < B; env0 += E) {
+    const int n_env = B - env0 < E ? B - env0 : E;
+    for (float& v : tiles) v = NAN;
+    for (int t = 0; t < E * BEZ_WARP; ++t)
+      bez_stage_in(M, L, E, t, env0, n_env, B, s, p, tiles.data());
+    Lanes lanes;
+    lanes.lane = 0;
+    lanes.reverse = reverse != 0;
+    for (int w = 0; w < n_env; ++w)
+      bez_substep_warp(lanes, M, L, tiles.data() + (size_t)w * L.size);
+    for (int t = 0; t < E * BEZ_WARP; ++t)
+      bez_stage_out(M, L, E, t, env0, n_env, B, tiles.data(), o);
+  }
 }
 """
 
@@ -48,16 +73,18 @@ def host_lib(tmp_path_factory):
                     "-I", str(_build.CSRC_DIR), "-o", str(d / "shim.so"),
                     str(d / "shim.cpp")], check=True)
     lib = ctypes.CDLL(str(d / "shim.so"))
-    lib.substep_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.substep_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     lib.tables_size.restype = ctypes.c_int
+    lib.envs_per_block.restype = ctypes.c_int
     return lib
 
 
-def host_substep(lib, tables, state_in, params_in):
-    out = torch.empty((ss.out_rows(tables.model.nq, tables.model.nb),
-                       state_in.shape[1]), dtype=torch.float32)
+def host_substep(lib, tables, state_in, params_in, reverse=False):
+    out = torch.full((ss.out_rows(tables.model.nq, tables.model.nb),
+                      state_in.shape[1]), float("nan"), dtype=torch.float32)
     lib.substep_host(ctypes.addressof(tables.struct), state_in.data_ptr(),
-                     params_in.data_ptr(), out.data_ptr(), state_in.shape[1])
+                     params_in.data_ptr(), out.data_ptr(), state_in.shape[1],
+                     int(reverse))
     return out
 
 
@@ -103,6 +130,44 @@ def test_body_matches_plain_one_substep(host_lib, variant, B):
     # base angular velocity rows).
     np.testing.assert_allclose(got[:n].numpy(), ref[:n].numpy(), atol=5e-4)
     # Sensor sums and body contact forces: kn=6000 N/m springs.
+    np.testing.assert_allclose(got[n:].numpy(), ref[n:].numpy(), rtol=1e-3,
+                               atol=1e-2)
+
+
+def test_schedule_lane_order_is_bit_identical(host_lib):
+    """Each lane block's items run first to last and last to first give the
+    same bits: no item reads what another item of its block writes.  Bez
+    `stl` with the ball against the left leg, so the box and ball stages,
+    the damped inertias and every velocity term are live."""
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    st, params, targets = _inputs(model, cfg, 16, seed=3, base_z=0.32)
+    x = ss.pack_state(st)
+    p = ss.pack_params(model, params, targets)
+    act = ss.contact_activity(tables, x)
+    assert act.box.sum() > 0 and act.plane.sum() > 0
+    fwd = host_substep(host_lib, tables, x, p)
+    rev = host_substep(host_lib, tables, x, p, reverse=True)
+    assert torch.isfinite(fwd).all()
+    assert torch.equal(fwd, rev)
+
+
+def test_ragged_tail_of_the_last_block(host_lib):
+    """B = 2 E + 3: two full blocks and one of three envs; every env
+    matches the plain version at the bars of the one-substep test."""
+    E = host_lib.envs_per_block()
+    B = 2 * E + 3
+    model = bez.load_bez_model("box_sensor")
+    cfg = engine.SceneConfig(substeps=2)
+    tables = ss.KernelTables(model, cfg)
+    st, params, targets = _inputs(model, cfg, B, seed=11)
+    x = ss.pack_state(st)
+    p = ss.pack_params(model, params, targets)
+    got = host_substep(host_lib, tables, x, p)
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(model.nq)
+    np.testing.assert_allclose(got[:n].numpy(), ref[:n].numpy(), atol=5e-4)
     np.testing.assert_allclose(got[n:].numpy(), ref[n:].numpy(), rtol=1e-3,
                                atol=1e-2)
 
