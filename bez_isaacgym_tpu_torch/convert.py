@@ -4,7 +4,11 @@ Plain numpy-in, torch-out functions: the caller hands over the JAX side's
 NamedTuples / RobotModel with their leaves as numpy arrays (for example
 `jax.tree.map(np.asarray, state)`), and gets the port's tensors on a given
 device.  Fields are matched by name, so fields the port does not carry (the
-PRNG `key` of EnvState) are dropped.  Nothing here imports the JAX package.
+PRNG `key` of EnvState) are dropped.  Network weights come across as
+`state_dict`s from flax variable dicts (`{"params": {"Dense_0": ...}}`, as
+`Module.init` returns them and checkpoints hold them), read with
+`utils.checkpoint.read_msgpack` or taken from a live JAX pytree.  Nothing
+here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from bez_isaacgym_tpu_torch.models.robot import DynParams, RobotModel, Site
 from bez_isaacgym_tpu_torch.ops.engine import PhysicsState
+from bez_isaacgym_tpu_torch.rl.networks import RunningMeanStd
 from bez_isaacgym_tpu_torch.solvers.mppi import MPPIState
 from bez_isaacgym_tpu_torch.tasks.base import EnvState
 
@@ -65,3 +70,88 @@ def robot_model(src) -> RobotModel:
                            rot=np.asarray(s.rot))
                    for k, s in src.sites.items()}
     return RobotModel(**kw)
+
+
+# ------------------------------------------------------------------ networks
+def _params(variables) -> dict:
+    """The `params` collection of a flax variable dict."""
+    if set(variables) != {"params"}:
+        raise ValueError("expected a flax variable dict {'params': ...}, "
+                         f"got keys {sorted(variables)}")
+    return variables["params"]
+
+
+def _dense_names(params: dict) -> list[str]:
+    """Dense_0, Dense_1, ... in creation order."""
+    names = [k for k in params if k.startswith("Dense_")]
+    return sorted(names, key=lambda k: int(k[len("Dense_"):]))
+
+
+def _dense(src: dict, name: str) -> dict:
+    """A flax Dense {kernel (in, out), bias} as nn.Linear's weight (out, in)
+    and bias, under `name`."""
+    out = {f"{name}.weight": tensor(np.asarray(src["kernel"]).T)}
+    if "bias" in src:
+        out[f"{name}.bias"] = tensor(src["bias"])
+    return out
+
+
+def mlp(variables, names: list[str]) -> dict:
+    """State dict of a flax module made only of Dense layers: the i-th
+    Dense (creation order) becomes `names[i]`; the count must match."""
+    params = _params(variables)
+    denses = _dense_names(params)
+    if len(denses) != len(names) or len(params) != len(denses):
+        raise ValueError(f"flax params {sorted(params)} do not fit the "
+                         f"{len(names)} layers {names}")
+    sd = {}
+    for src, dst in zip(denses, names):
+        sd.update(_dense(params[src], dst))
+    return sd
+
+
+def _hidden_names(n: int) -> list[str]:
+    return [f"hidden.{i}" for i in range(n)]
+
+
+def actor_critic(variables) -> dict:
+    """flax ActorCritic -> `rl.networks.ActorCritic` state dict: Dense_0 ..
+    Dense_{n-1} hidden, Dense_n the mean head, Dense_{n+1} the value head,
+    and log_std."""
+    params = _params(variables)
+    n = len(_dense_names(params)) - 2
+    sd = mlp({"params": {k: v for k, v in params.items() if k != "log_std"}},
+             _hidden_names(n) + ["mu", "value"])
+    sd["log_std"] = tensor(params["log_std"])
+    return sd
+
+
+def central_value(variables) -> dict:
+    """flax CentralValue -> `rl.networks.CentralValue` state dict."""
+    n = len(_dense_names(_params(variables))) - 1
+    return mlp(variables, _hidden_names(n) + ["value"])
+
+
+def lstm(variables) -> dict:
+    """flax ActorCriticLSTM -> `rl.networks.ActorCriticLSTM` state dict.  The
+    cell's ii/if/ig/io kernels stack (in that order) into `cell.input`, its
+    hi/hf/hg/ho kernels and biases into `cell.hidden`."""
+    params = dict(_params(variables))
+    cell = params.pop("OptimizedLSTMCell_0")
+    gates = "ifgo"
+    sd = actor_critic({"params": params})
+    sd["cell.input.weight"] = tensor(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"]) for g in gates], axis=1).T)
+    sd["cell.hidden.weight"] = tensor(np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]) for g in gates], axis=1).T)
+    sd["cell.hidden.bias"] = tensor(np.concatenate(
+        [np.asarray(cell[f"h{g}"]["bias"]) for g in gates]))
+    return sd
+
+
+def running_mean_std(src, device="cpu") -> RunningMeanStd:
+    """A RunningMeanStd NamedTuple or its state dict {mean, var, count}."""
+    if not isinstance(src, dict):
+        src = src._asdict()
+    return RunningMeanStd(*[tensor(src[f], device)
+                            for f in RunningMeanStd._fields])

@@ -111,3 +111,38 @@ def test_task_on_cuda_steps_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert ss.substep.launches == before + 2
     assert torch.isfinite(out.obs).all()
+
+
+def test_kernel_matches_plain_at_substeps_4(cuda):
+    """The serving path's configuration: substeps=4 (h = dt/4), the ball
+    against the leg, at the prior eval's rollout batch 64*40."""
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=4)
+    tables = ss.KernelTables(model, cfg)
+    x, p = _buffers(model, cfg, 2560, cuda, kick=True)
+    out = ss.substep(tables, x, p)
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(model.nq)
+    assert torch.isfinite(out).all()
+    # The bar of test_kernel_matches_plain.
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+
+
+def test_player_on_cuda_matches_the_player_on_the_cpu(cuda):
+    from pathlib import Path
+
+    from bez_isaacgym_tpu_torch.rl.players import PpoPlayerContinuous
+
+    ckpt = str(Path(__file__).resolve().parents[1] / "runs" / "Bez_Kick"
+               / "Bez_Kick_best.ckpt")
+    task = KickTask(TaskConfig(substeps=4), device="cpu")
+    on_cpu = PpoPlayerContinuous(task, checkpoint_path=ckpt, device="cpu")
+    on_card = PpoPlayerContinuous(task, checkpoint_path=ckpt, device="cuda")
+    rms = on_cpu.obs_rms
+    obs = rms.mean + 2.0 * torch.sqrt(rms.var) * torch.randn(
+        (64, 54), generator=torch.Generator().manual_seed(0))
+    a_cpu = on_cpu.get_action(obs)
+    a_card = on_card.get_action(obs.to(cuda))
+    assert a_card.device.type == "cuda"
+    # One f32 MLP on two devices (TF32 off): 1e-5.
+    assert float((a_card.cpu() - a_cpu).abs().max()) <= 1e-5

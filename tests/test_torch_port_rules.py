@@ -1,9 +1,9 @@
 """Rules of the PyTorch port, checked without a GPU.
 
 - No file of `bez_isaacgym_tpu_torch/`, and not `chip_smoke.py`, imports
-  `jax` or the JAX package `bez_isaacgym_tpu`.
-- The port's copies of the robot specs are byte-identical to the JAX
-  package's.
+  `jax`, `flax`, `msgpack` or the JAX package `bez_isaacgym_tpu`.
+- The port's copies of the robot specs and keyframe trajectories are
+  byte-identical to the JAX package's.
 - Entry points default to the CUDA device, and without one they raise
   instead of running on the CPU; CPU tensors take the plain path only
   because they lie on the CPU.
@@ -36,7 +36,10 @@ PORT = ROOT / "bez_isaacgym_tpu_torch"
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
                     if (PORT / "build") not in p.parents) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bez_isaacgym_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "bez_isaacgym_tpu")
+SUBPACKAGES = ("models", "ops", "tasks", "solvers", "rl", "envs", "eval",
+               "control", "utils")
 
 
 def _imported_modules(path: Path):
@@ -62,6 +65,23 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_subpackage_is_scanned(sub):
+    scanned = [p for p in PORT_FILES if (PORT / sub) in p.parents]
+    assert (PORT / sub / "__init__.py") in scanned
+    assert len(scanned) >= 2, scanned
+
+
+def test_forbidden_imports_are_caught(tmp_path):
+    """The scan sees each forbidden root, in every import form."""
+    src = tmp_path / "probe.py"
+    src.write_text("import msgpack\nfrom flax import serialization\n"
+                   "import bez_isaacgym_tpu.rl.players\n"
+                   "importlib.import_module('jax.numpy')\n")
+    roots = {m.split(".")[0] for m in _imported_modules(src)}
+    assert roots == {"msgpack", "flax", "bez_isaacgym_tpu", "jax"}
+
+
 @pytest.mark.parametrize("variant", ["stl", "box", "box_sensor",
                                      "stl_sensor"])
 def test_asset_copies_are_byte_identical(variant):
@@ -71,18 +91,53 @@ def test_asset_copies_are_byte_identical(variant):
     assert port == ref
 
 
+_TRAJ = ROOT / "bez_isaacgym_tpu" / "assets" / "trajectories"
+TRAJECTORIES = sorted(p.name for p in _TRAJ.glob("*.json"))
+
+
+@pytest.mark.parametrize("name", TRAJECTORIES)
+def test_trajectory_copies_are_byte_identical(name):
+    port = (PORT / "assets" / "trajectories" / name).read_bytes()
+    assert port == (_TRAJ / name).read_bytes()
+
+
+def test_port_trajectories_are_exactly_the_jax_packages():
+    names = {p.name for p in (PORT / "assets" / "trajectories").iterdir()}
+    assert names == set(TRAJECTORIES)
+
+
+def _entry_points():
+    from bez_isaacgym_tpu_torch.eval.kick_eval import eval_mppi, eval_policy
+    from bez_isaacgym_tpu_torch.rl.players import (PpoPlayerContinuous,
+                                                   PpoPlayerDiscrete,
+                                                   SACPlayer)
+    return (KickTask.__init__, BezTask.__init__, resolve_device,
+            PpoPlayerContinuous.__init__, PpoPlayerDiscrete.__init__,
+            SACPlayer.__init__, eval_policy, eval_mppi)
+
+
 def test_entry_points_default_to_cuda():
-    for fn in (KickTask.__init__, BezTask.__init__, resolve_device):
+    for fn in _entry_points():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_no_gpu_raises_instead_of_running_on_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    from bez_isaacgym_tpu_torch.eval import kick_eval
+    from bez_isaacgym_tpu_torch.rl.players import PpoPlayerContinuous
+
     with pytest.raises(RuntimeError, match="CUDA"):
         KickTask(TaskConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
+    task = KickTask(TaskConfig(substeps=1), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PpoPlayerContinuous(task)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kick_eval.eval_policy("", num_envs=1, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kick_eval.main(["--solver", "mppi", "--num-envs", "1"])
 
 
 def test_cpu_task_uses_the_plain_engine():
