@@ -1,17 +1,22 @@
-"""MPC warm starts from a keyframe skill.
+"""MPC warm starts from the classical control stack.
 
-Port of `bez_isaacgym_tpu/control/warmstart.py` (numpy, host side):
-`skill_warm_start` resamples a keyframe skill (e.g. simulation_rightkick)
-onto the MPC grid as (S, H, nq) joint-position offsets from the ready pose,
-what `BezTask._pre_physics` consumes.  `walk_warm_start` needs the walking
-engine's control stack and waits for the control slice.
+Port of `bez_isaacgym_tpu/control/warmstart.py` (numpy, host side): (S, H,
+nq) joint-position offsets from the ready pose, what
+`BezTask._pre_physics` consumes, from the two classical generators:
+
+- `walk_warm_start`: the walking engine's joint plan toward per-env goals
+  (path/footpath/crotchpath + closed-form IK), resampled onto the MPC grid;
+- `skill_warm_start`: a keyframe skill (e.g. simulation_rightkick)
+  resampled onto the MPC grid.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from bez_isaacgym_tpu_torch.control.controller import SoccerbotController
 from bez_isaacgym_tpu_torch.control.trajectories import Trajectory
+from bez_isaacgym_tpu_torch.control.transformation import Transformation
 
 
 def _resample(times: np.ndarray, angles: np.ndarray, horizon: int,
@@ -21,6 +26,19 @@ def _resample(times: np.ndarray, angles: np.ndarray, horizon: int,
     grid = np.clip(grid, times[0], times[-1])
     return np.stack([np.interp(grid, times, angles[:, j])
                      for j in range(angles.shape[1])], axis=1)
+
+
+def walk_warm_start(task, goals: np.ndarray, horizon: int,
+                    dt: float = 1.0 / 60.0, t0: float = 0.0) -> np.ndarray:
+    """(S, H, nq) walking-gait nominals toward per-env (x, y, theta) goals."""
+    default = task.default_dof_pos.cpu().numpy()
+    out = np.zeros((len(goals), horizon, task.num_actions), np.float32)
+    for i, (x, y, theta) in enumerate(np.asarray(goals)):
+        ctrl = SoccerbotController()
+        times, angles = ctrl.plan_joint_trajectory(
+            Transformation.from_xy_theta(float(x), float(y), float(theta)))
+        out[i] = _resample(times, angles, horizon, dt, t0) - default
+    return out
 
 
 def _skill_angles(skill: str, dt: float):

@@ -704,8 +704,42 @@ def _perm(col, nq: int) -> int:
     return k if kind == "joint" else nq + (k if kind == "lin" else 3 + k)
 
 
-def bytes_per_env(model: RobotModel) -> int:
+# The ball's state rows: ball_pos, ball_quat, ball_vel, ball_ang.
+BALL_ROWS = 13
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+
+
+def bytes_per_env(model: RobotModel, has_ball: bool = True) -> int:
     """Bytes one launch must move per env: every input row read once and
-    every output row written once, float32."""
+    every output row written once, float32.  Without a ball the substep
+    needs none of the ball's rows, in or out (the kernel copies them
+    through, which this count leaves out)."""
     nq, nb = model.nq, model.nb
-    return 4 * (state_rows(nq) + param_rows(nq, nb) + out_rows(nq, nb))
+    rows = state_rows(nq) + param_rows(nq, nb) + out_rows(nq, nb)
+    return 4 * (rows - (0 if has_ball else 2 * BALL_ROWS))
+
+
+class Bound(NamedTuple):
+    """The least time one launch could take on the card: the larger of
+    its bytes over HBM's rate and its operations over the fp32 peak."""
+
+    ms: float
+    by: str                 # "bytes" or "operations"
+    bytes: int
+    flops: int
+
+
+def bound(tables: KernelTables, state_in: Tensor) -> Bound:
+    """The bound of one launch on `state_in`, counting the contacts this
+    data activates and the ball's work only where the scene has one."""
+    nbytes = bytes_per_env(tables.model, tables.cfg.has_ball) \
+        * state_in.shape[1]
+    flops = sum(flop_terms(tables, contact_activity(tables, state_in))
+                .values())
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FP32_PER_S * 1e3
+    return Bound(max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+                 nbytes, flops)

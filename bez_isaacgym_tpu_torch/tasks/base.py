@@ -96,6 +96,16 @@ class StepOutput(NamedTuple):
     time_out: Tensor
 
 
+def norm(x: Tensor) -> Tensor:
+    """Euclidean norm over the last axis."""
+    return torch.linalg.norm(x, dim=-1)
+
+
+def unit(x: Tensor) -> Tensor:
+    """x over its norm, the norm floored at 1e-9 (the JAX `clip(1e-9)`)."""
+    return x / norm(x).clamp_min(1e-9)[..., None]
+
+
 def tree_where(mask: Tensor, a, b):
     """Per-env select over (nested) NamedTuples of (B, ...) tensors."""
     if a is None:

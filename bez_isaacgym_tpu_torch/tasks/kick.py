@@ -10,17 +10,10 @@ from __future__ import annotations
 import torch
 
 from bez_isaacgym_tpu_torch.ops import sensors
-from bez_isaacgym_tpu_torch.tasks.base import BezTask, EnvState, TaskConfig
+from bez_isaacgym_tpu_torch.tasks.base import (BezTask, EnvState, TaskConfig,
+                                               norm, unit)
 
 DESIRED_HEIGHT = 0.325  # kick_env.py:1125
-
-
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.norm(x, dim=-1)
-
-
-def _unit(x: torch.Tensor) -> torch.Tensor:
-    return x / _norm(x).clamp_min(1e-9)[..., None]
 
 
 class KickTask(BezTask):
@@ -58,25 +51,25 @@ class KickTask(BezTask):
         v_imu = ph.base_u[:, 0:3]
         w_imu = ph.base_u[:, 3:6]
 
-        velocity_forward = torch.sum(_unit(ball_xy - bez_xy) * v_imu[:, 0:2],
+        velocity_forward = torch.sum(unit(ball_xy - bez_xy) * v_imu[:, 0:2],
                                      dim=-1)
 
         to_goal = state.goal - ball_xy
-        to_goal_norm = _norm(to_goal)
+        to_goal_norm = norm(to_goal)
         ball_to_goal_unit = to_goal / to_goal_norm.clamp_min(1e-9)[:, None]
         ball_velocity_forward = torch.sum(
             ball_to_goal_unit * ph.ball_vel[:, 0:2], dim=-1)
 
-        init_unit = _unit(state.goal - state.ball_init)
+        init_unit = unit(state.goal - state.ball_init)
         ball_to_goal_angle = torch.atan2(ball_to_goal_unit[:, 1],
                                          ball_to_goal_unit[:, 0])
         init_to_goal_angle = torch.atan2(init_unit[:, 1], init_unit[:, 0])
         goal_angle_diff = torch.abs(init_to_goal_angle - ball_to_goal_angle)
 
-        vel_reward = 0.05 * _norm(torch.cat([v_imu, w_imu], dim=-1))
-        pos_reward = 0.05 * _norm(self.default_dof_pos - ph.q)
+        vel_reward = 0.05 * norm(torch.cat([v_imu, w_imu], dim=-1))
+        pos_reward = 0.05 * norm(self.default_dof_pos - ph.q)
         distance_to_height = torch.abs(DESIRED_HEIGHT - ph.base_pos[:, 2])
-        distance_kicked = _norm(ball_xy - state.ball_init)
+        distance_kicked = norm(ball_xy - state.ball_init)
 
         # After first ball displacement > 0.3 m vs before (kick_env.py:1304).
         ball_height_vel_pos = (0.1 * ball_velocity_forward
@@ -99,7 +92,7 @@ class KickTask(BezTask):
         # Bez out of bound (kick_env.py:1340-1349).
         init_xy = torch.as_tensor(cfg.bez_init_pos[:2], dtype=f32,
                                   device=bez_xy.device)
-        oob = _norm(bez_xy - init_xy) > 0.5
+        oob = norm(bez_xy - init_xy) > 0.5
         reward = override(oob, -1.0, reward)
         done = done | oob
         # Ball direction out of bound (kick_env.py:1370-1377).

@@ -44,21 +44,46 @@ Phase 7  MPPI serving, the plain engine forbidden: eval_mppi at
          standard deviations from the JAX package's own f32 run (0.109).
          Then where a prior tick's time goes: the prior's observe and MLP
          at B=2560 (CUDA events), and torch.profiler over 2 ticks.
+Phase 8  the kernel in the new tasks' configurations, against its plain
+         version at phase 1's bars: the walk scene (no ball, substeps=4)
+         at B=64, 2048 and 1, one substep (the ball's rows copied through)
+         and five control steps; the goalie's box model, Kd=0, with the
+         10 m/s shot at B=64 and 1, one substep at a time over 20 control
+         steps from the kernel's own state (a ball meets a box; the bar is
+         1e-3 or twice the plain version's own f32 error against f64,
+         whichever is larger: the first substep lands the box feet), then the
+         20 steps chained on both, the balls that got past the robot the
+         same; the kick task at substeps=8 (tracking's) at B=1.  ms per
+         launch (a CUDA graph of 20 chained launches for B <= 64, where a
+         Python loop is host-bound) and bound_ms for each.
+Phase 9  serving the goalie, orient and walk policies through
+         eval/task_eval.py (64 envs; at most 1500, 600 and 600 steps;
+         substeps=4, the plain engine forbidden), each held to bars about 3
+         binomial standard deviations (n=64) from its shipped artifact,
+         except the goalie's fall rate: 3 standard deviations from the JAX
+         package's own f32 rate over seeds 0-3 (0.195), not the TPU
+         artifact's 0.078.  Then the goalie eval from the JAX eval's own
+         initial states at seeds 0-3 (256 envs, tests/data/), held to 3
+         standard deviations (n=256) from the JAX results from those states.
+Phase 10 the classical stack: eval/tracking.py's kick-skill tracking
+         (substeps=8) and closed-loop walk tracking (substeps=4) at B=1,
+         the plain engine forbidden, held to tests/test_tracking.py's
+         bounds; ms per control step.
+In phases 6, 7, 9 and 10 the env steps are counted at BezTask.step_batch,
+apart from the launch counter, and the launches must be exactly the
+substeps (times H+1 for MPPI) of every step; a tracking drive's steps must
+be its plan's length.
 Timings are CUDA-event times on this card.  Every phase asserts; any
 failure exits non-zero.  The last line is the run's result as JSON.
 """
 
 import json
 import math
+import operator
 import subprocess
 import sys
 import time
 from pathlib import Path
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-
 
 def log(*a):
     print(*a, flush=True)
@@ -86,6 +111,32 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(torch, ss, tables, x, p, n_launch: int = 20,
+             reps: int = 20) -> float:
+    """ms per launch of n_launch chained substep launches captured in one
+    CUDA graph and replayed reps times: at small B a Python launch loop
+    measures the host, not the kernel."""
+    n = ss.state_rows(tables.model.nq)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x
+        for _ in range(3):
+            y = ss.substep(tables, y, p)[:n]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        y = x
+        for _ in range(n_launch):
+            y = ss.substep(tables, y, p)[:n]
+    return cuda_ms(torch, g.replay, reps) / n_launch
+
+
+OPS = {">=": operator.ge, "<=": operator.le, "==": operator.eq,
+       ">": operator.gt, "<": operator.lt}
+
+
 def main() -> int:
     import torch
 
@@ -107,7 +158,8 @@ def main() -> int:
     from bez_isaacgym_tpu_torch.ops import _build, engine
     from bez_isaacgym_tpu_torch.ops import substep as ss
     from bez_isaacgym_tpu_torch.solvers.mppi import MPPIConfig, MPPISolver
-    from bez_isaacgym_tpu_torch.tasks.base import TaskConfig, tree_map
+    from bez_isaacgym_tpu_torch.tasks.base import (BezTask, TaskConfig,
+                                                   tree_map)
     from bez_isaacgym_tpu_torch.tasks.kick import KickTask
 
     dev = resolve_device("cuda")
@@ -161,7 +213,8 @@ def main() -> int:
         tg = torch.as_tensor(q0, device=dev).expand(B, model.nq).contiguous()
         return st, params, tg
 
-    def check_steps(model, cfg, st, params, tg, n_steps, label):
+    def check_steps(model, cfg, st, params, tg, n_steps, label,
+                    phase="phase1"):
         """Kernel vs plain step, n_steps control steps, test_pallas bars."""
         kstep = ss.make_kernel_step_fn(model, cfg)
         pstep = engine.make_batched_step_fn(model, cfg)
@@ -188,7 +241,7 @@ def main() -> int:
         f_p = b.body_contact_force[:, feet, 2].cpu().numpy()
         ok = np.abs(f_k - f_p) <= 2.0 + 0.3 * np.abs(f_p)
         assert ok.mean() >= 0.99, (label, ok.mean())
-        log(f"phase1 {label}: max|kernel-plain| "
+        log(f"{phase} {label}: max|kernel-plain| "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
             + f" slot_agree={agree.mean():.4f} feet_ok={ok.mean():.4f}")
         return errs
@@ -276,21 +329,18 @@ def main() -> int:
     max_abs_err = max(max_abs_err, err64)
     log(f"phase1 one substep B=2048: max|kernel-plain| on the state rows = "
         f"{err64:.3e}")
-    bytes_ = ss.bytes_per_env(stl) * B_MAIN
     terms = ss.flop_terms(tables, ss.contact_activity(tables, x))
-    flops = sum(terms.values())
     log("phase1 flops B=" + str(B_MAIN) + " by stage: " + " ".join(
         f"{k}={v}" for k, v in terms.items()))
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    b_main = ss.bound(tables, x)
+    bound_ms, bound_by = b_main.ms, b_main.by
     log(f"phase1 timing B={B_MAIN}: kernel_ms={ms_k:.5f} plain_ms={ms_p:.3f}"
         f" | B=2048: kernel_ms={ms_k64:.5f}")
-    log(f"phase1 bound B={B_MAIN}: bytes={bytes_} ({t_bytes * 1e3:.2f} us at "
-        f"3.35 TB/s) flops={flops} ({t_ops * 1e3:.2f} us at 67 TFLOP/s fp32)"
-        f" -> bound_ms={bound_ms:.5f} ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms_k:.2f}% of bound")
+    log(f"phase1 bound B={B_MAIN}: bytes={b_main.bytes} "
+        f"({b_main.bytes / ss.PEAK_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s) "
+        f"flops={b_main.flops} ({b_main.flops / ss.PEAK_FP32_PER_S * 1e6:.2f}"
+        f" us at 67 TFLOP/s fp32) -> bound_ms={bound_ms:.5f} ({bound_by}); "
+        f"kernel at {100 * bound_ms / ms_k:.2f}% of bound")
 
     # ---------------- phase 2: standing balance -----------------------------
     s_, p_, t_ = batch(stl, cfg2, 256, seed=0)
@@ -452,13 +502,10 @@ def main() -> int:
                         f"substeps=4 ball contact B={B_} 5 steps")
         ms_sub4[B_] = cuda_ms(torch, lambda: ss.substep(tables4, x_, pp_),
                               reps=50)
-        bytes4 = ss.bytes_per_env(stl) * B_
-        flops4 = sum(ss.flop_terms(tables4, act_).values())
-        bound4 = max(bytes4 / PEAK_BYTES_PER_S, flops4 / PEAK_FP32_PER_S) \
-            * 1e3
+        b4 = ss.bound(tables4, x_)
         log(f"phase5 timing substeps=4 B={B_}: kernel_ms={ms_sub4[B_]:.5f}"
-            f" bound_ms={bound4:.6f} (bytes={bytes4} flops={flops4}; "
-            f"{100 * bound4 / ms_sub4[B_]:.2f}% of bound)")
+            f" bound_ms={b4.ms:.6f} (bytes={b4.bytes} flops={b4.flops}; "
+            f"{100 * b4.ms / ms_sub4[B_]:.2f}% of bound)")
     log(f"phase5 card: {card_line()}")
 
     # ---------------- phases 6 and 7: serving the trained controllers -------
@@ -470,6 +517,7 @@ def main() -> int:
     kick_ckpt = root / "runs" / "Bez_Kick" / "Bez_Kick_best.ckpt"
     dr_ckpt = root / "runs" / "Bez_Kick_DR" / "Bez_Kick_DR_best.ckpt"
     launches_by_path = {"mppi_tick_substeps2": launches}
+    real_step_batch = BezTask.step_batch
     ms_per_tick = {}        # by eval label
     misses = []             # every eval runs; a missed bar fails at the end
 
@@ -478,38 +526,67 @@ def main() -> int:
             return [x for v in tree.values() for x in leaves(v)]
         return [tree]
 
-    def run_eval(phase, label, fn, per_tick, bars):
+    def run_eval(phase, label, fn, per_tick, bars, max_ticks=None,
+                 ticks_expected=None, num_envs=64):
         """One eval through its entry point, the launch counter set to 0
-        just before and read just after; bars: {metric: (op, bound)}."""
-        ss.substep.launches = 0
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.time()
-        e0.record()
-        res = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        n = ss.substep.launches
-        assert n > 0 and n % per_tick == 0, (label, n, per_tick)
-        ticks = n // per_tick
+        just before and read just after; bars: [(metric, op, bound)].
+
+        The env steps (ticks) are counted apart from the launches, at
+        `BezTask.step_batch`, and the launches must be exactly per_tick
+        for each: the kernel ran every substep of every tick, and nothing
+        else launched it."""
+        ticks_run = [0]
+
+        def counted_step_batch(self, *a, **k):
+            ticks_run[0] += 1
+            return real_step_batch(self, *a, **k)
+
+        BezTask.step_batch = counted_step_batch
+        try:
+            ss.substep.launches = 0
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.time()
+            e0.record()
+            res = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            n = ss.substep.launches
+        finally:
+            BezTask.step_batch = real_step_batch
+        ticks = ticks_run[0]
+        assert ticks > 0 and n == per_tick * ticks, (label, n, per_tick,
+                                                     ticks)
+        if max_ticks is not None:
+            assert ticks <= max_ticks, (label, ticks, max_ticks)
+        if ticks_expected is not None:
+            assert ticks == ticks_expected, (label, ticks, ticks_expected)
         ms_tick = e0.elapsed_time(e1) / ticks
         log(f"{phase} {label}: {json.dumps(res)}")
         log(f"{phase} {label}: s={secs:.2f} ticks={ticks} launches={n} "
-            f"({per_tick} per tick) ms_per_tick={ms_tick:.3f} (CUDA events "
-            f"around the whole eval call, set-up included) | {card_line()}")
-        nums = [v for k, v in res.items() if k not in ("config", "num_envs")]
+            f"(= {per_tick} per tick x {ticks} ticks) ms_per_tick="
+            f"{ms_tick:.3f} (CUDA events around the whole eval call, set-up "
+            f"included) | {card_line()}")
+        nums = [v for v in res.values()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)]
         assert all(math.isfinite(v) for v in nums), res
-        assert res["num_envs"] == 64, res
-        for metric, (op, bound) in bars.items():
-            ok = res[metric] >= bound if op == ">=" else res[metric] <= bound
+        if "num_envs" in res:
+            assert res["num_envs"] == num_envs, res
+        check_bars(phase, label, res, bars)
+        launches_by_path[label] = n
+        ms_per_tick[label] = ms_tick
+        return res
+
+    def check_bars(phase, label, res, bars):
+        """bars: [(metric, op, bound)]; a miss is kept for the end."""
+        for metric, op, bound in bars:
+            ok = OPS[op](res[metric], bound)
             log(f"{phase} {label}: {metric}={res[metric]:.6f} {op} {bound}"
                 f" {'ok' if ok else 'MISSED'}")
             if not ok:
                 misses.append((label, metric, res[metric], op, bound))
-        launches_by_path[label] = n
-        ms_per_tick[label] = ms_tick
 
     engine.substep = plain_forbidden
     try:
@@ -543,14 +620,14 @@ def main() -> int:
         run_eval("phase6", "policy Bez_Kick_best",
                  lambda: kick_eval.eval_policy(str(kick_ckpt), num_envs=64,
                                                steps=600),
-                 4, {"success_rate": (">=", 0.90),
-                     "kicked_rate": (">=", 0.95),
-                     "fall_rate": ("<=", 0.23)})
+                 4, [("success_rate", ">=", 0.90),
+                     ("kicked_rate", ">=", 0.95),
+                     ("fall_rate", "<=", 0.23)], max_ticks=600)
         run_eval("phase6", "DR policy Bez_Kick_DR_best on the nominal env",
                  lambda: kick_eval.eval_policy(str(dr_ckpt), num_envs=64,
                                                steps=600),
-                 4, {"success_rate": (">=", 0.87),
-                     "fall_rate": ("<=", 0.18)})
+                 4, [("success_rate", ">=", 0.87),
+                     ("fall_rate", "<=", 0.18)], max_ticks=600)
 
         # ------------ phase 7: MPPI serving ------------------------------
         common = dict(num_envs=64, steps=600, horizon=32, temperature=0.05,
@@ -565,17 +642,17 @@ def main() -> int:
                  # the JAX package in f32 on the CPU, same config and seed,
                  # falls 0.109 (7/64), as the port does: the fall bar is 3
                  # standard deviations from that reference, 0.23.
-                 4 * 33, {"success_rate": (">=", 0.93),
-                          "kicked_rate": (">=", 0.95),
-                          "fall_rate": ("<=", 0.23)})
+                 4 * 33, [("success_rate", ">=", 0.93),
+                          ("kicked_rate", ">=", 0.95),
+                          ("fall_rate", "<=", 0.23)], max_ticks=600)
         run_eval("phase7", "MPPI with the keyframe warm start",
                  lambda: kick_eval.eval_mppi(
                      num_samples=96, sigma=0.08,
                      warm_skill="simulation_rightkick", balance_weight=0.3,
                      terminal_balance_weight=5.0, **common),
-                 4 * 33, {"success_rate": (">=", 0.42),
-                          "kicked_rate": (">=", 0.82),
-                          "fall_rate": ("<=", 0.08)})
+                 4 * 33, [("success_rate", ">=", 0.42),
+                          ("kicked_rate", ">=", 0.82),
+                          ("fall_rate", "<=", 0.08)], max_ticks=600)
 
         # ------------ phase 7: where a prior tick's time goes -------------
         # The prior runs inside every rollout step: observe + the policy
@@ -621,6 +698,277 @@ def main() -> int:
             f"{card_line()}")
     finally:
         engine.substep = real_substep
+
+    # ---------------- phase 8: the kernel in the new configurations ---------
+    from bez_isaacgym_tpu_torch.tasks.goalie import GoalieTask
+    from bez_isaacgym_tpu_torch.tasks.walk import WalkTask
+
+    b2048 = ss.bound(tables, x64)
+    log(f"phase8 bound of phase 1's B=2048 (substeps 2): bound_ms="
+        f"{b2048.ms:.6f} ({b2048.by}; bytes={b2048.bytes} flops="
+        f"{b2048.flops})")
+    ball_rows = slice(2 * stl.nq + 13, n_state)
+    p8 = {}                 # config label -> {ms, bound_ms}
+
+    def task_inputs(task, B_, seed, scale):
+        """B_ reset states of `task` and the targets of random actions
+        through the task's own action pipeline."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        env_ = task.reset(g, B_)
+        acts_ = scale * torch.randn((B_, 18), generator=g, device=dev)
+        return env_, task._pre_physics(env_, acts_, g)[1]
+
+    def time_launch(label, tables_, x_, p_):
+        B_ = x_.shape[1]
+        if B_ <= 64:
+            ms_, how = graph_ms(torch, ss, tables_, x_, p_), "CUDA graph"
+        else:
+            ms_ = cuda_ms(torch, lambda: ss.substep(tables_, x_, p_),
+                          reps=50)
+            how = "launch loop"
+        b = ss.bound(tables_, x_)
+        p8[label] = {"ms": ms_, "bound_ms": b.ms}
+        log(f"phase8 timing {label}: kernel_ms={ms_:.5f} ({how}) "
+            f"bound_ms={b.ms:.4g} ({b.by}; bytes={b.bytes} flops={b.flops}; "
+            f"{100 * b.ms / ms_:.2f}% of bound) has_ball="
+            f"{tables_.cfg.has_ball} | {card_line()}")
+
+    def load_env_states(path):
+        """The EnvState that tests/torch_goalie_same_states.py --write
+        saved, one array per leaf, on the card."""
+        from bez_isaacgym_tpu_torch.models.robot import DynParams
+        from bez_isaacgym_tpu_torch.tasks.base import EnvState
+
+        z = np.load(path)
+
+        def t(key):
+            return torch.as_tensor(z[key], device=dev)
+
+        assert EnvState._fields[:2] == ("physics", "dyn")
+        return EnvState(
+            physics=engine.PhysicsState(**{
+                f: t(f"physics.{f}") for f in engine.PhysicsState._fields}),
+            dyn=DynParams(**{f: t(f"dyn.{f}") for f in DynParams._fields}),
+            **{f: t(f) for f in EnvState._fields[2:]})
+
+    def one_substep(tables_, x_, p_):
+        out_k_ = ss.substep(tables_, x_, p_)
+        out_p_ = ss.substep_plain(tables_, x_, p_)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out_k_).all()
+        return out_k_, float((out_k_[:n_state] - out_p_[:n_state])
+                             .abs().max()), out_p_
+
+    def f32_floor(tables_, x_, p_, out_k_, out_p_):
+        """How far the plain version and the kernel, both f32, lie from the
+        plain version in f64 on this substep: the precision f32 itself
+        gives on this input."""
+        out_64 = ss.substep_plain(tables_, x_.double(), p_.double())[:n_state]
+        return tuple(float((o[:n_state].double() - out_64).abs().max())
+                     for o in (out_p_, out_k_))
+
+    # The walk scene (orient's is the same: stl, no ball, substeps 4).
+    walk = WalkTask(device="cuda")
+    tables_w = walk._step_physics_batch.tables
+    assert not tables_w.cfg.has_ball and tables_w.cfg.substeps == 4
+    for B_ in (64, 2048, 1):
+        env_, tg_ = task_inputs(walk, B_, 80 + B_, 0.2)
+        x_ = ss.pack_state(env_.physics)
+        p_ = ss.pack_params(walk.model, env_.dyn, tg_)
+        out_k_, err_, out_p_ = one_substep(tables_w, x_, p_)
+        assert err_ < 1e-3, (B_, err_)
+        # No ball: its rows leave both versions exactly as they came in.
+        assert torch.equal(out_k_[ball_rows], x_[ball_rows])
+        assert torch.equal(out_p_[ball_rows], x_[ball_rows])
+        max_abs_err = max(max_abs_err, err_)
+        log(f"phase8 walk no ball one substep B={B_}: max|kernel-plain| on "
+            f"the state rows = {err_:.3e}; ball rows unchanged in both")
+        check_steps(walk.model, walk.scene, env_.physics, env_.dyn, tg_, 5,
+                    f"walk no ball B={B_} 5 steps", phase="phase8")
+        time_launch(f"walk_noball_b{B_}", tables_w, x_, p_)
+
+    # The goalie: box model, Kd = 0, the ball shot at 10 m/s from x = 2 m.
+    goalie = GoalieTask(device="cuda")
+    tables_g = goalie._step_physics_batch.tables
+    n_sub = 20 * goalie.cfg.substeps
+    env64, tg64 = task_inputs(goalie, 64, 154, 0.1)
+    for B_ in (64, 1):
+        # B=1: an env of the B=64 batch whose ball meets a box.
+        env_, tg_ = (env64, tg64) if B_ == 64 else (
+            tree_map(lambda v: v[hit_env:hit_env + 1].clone(), env64),
+            tg64[hit_env:hit_env + 1].clone())
+        p_ = ss.pack_params(goalie.model, env_.dyn, tg_)
+        x_ = ss.pack_state(env_.physics)
+        # Each substep's bar is phase 1's 1e-3, or twice the plain
+        # version's own f32 error against f64 where that is larger: the
+        # goalie starts with its box feet in the ground and Kd = 0, and the
+        # first substep's contact impulse leaves velocities near 3.5 rad/s
+        # with f32 errors near 1e-3 in the plain version itself.
+        err_, hits, most, worst = 0.0, [], (-1, x_), (0.0, 0, 0.0, 0.0)
+        for k in range(n_sub):
+            act_ = ss.contact_activity(tables_g, x_)
+            hits.append(int(act_.box.sum()))
+            if hits[-1] > most[0]:
+                most = (hits[-1], x_)
+            out_k_, e_, out_p_ = one_substep(tables_g, x_, p_)
+            floor, k64 = f32_floor(tables_g, x_, p_, out_k_, out_p_)
+            assert e_ <= max(1e-3, 2 * floor), (B_, k, e_, floor)
+            if e_ > worst[0]:
+                worst = (e_, k, floor, k64)
+            err_ = max(err_, e_)
+            x_ = out_k_[:n_state]
+        touched = [k for k, h in enumerate(hits) if h]
+        assert touched, "no ball met a box in 20 control steps"
+        if B_ == 64:
+            hit_env = next(j for j in range(64) if ss.contact_activity(
+                tables_g, most[1][:, j:j + 1].contiguous()).box.sum())
+        max_abs_err = max(max_abs_err, err_)
+        log(f"phase8 goalie shot B={B_}: {n_sub} substeps one at a time "
+            f"from the kernel's state, max|kernel-plain| on the state rows "
+            f"= {err_:.3e} at substep {worst[1]} (against the plain version "
+            f"in f64 there: plain f32 {worst[2]:.3e}, kernel "
+            f"{worst[3]:.3e}); ball-box contacts in substeps {touched[0]}-"
+            f"{touched[-1]} (control steps {touched[0] // 4}-"
+            f"{touched[-1] // 4}), at most {most[0]} active pairs")
+        # The 20 steps chained on both: the balls the robot let through
+        # (or tunnelled) must be the same envs.
+        kst, pst = env_.physics, env_.physics
+        kstep_g = ss.make_kernel_step_fn(goalie.model, goalie.scene)
+        pstep_g = engine.make_batched_step_fn(goalie.model, goalie.scene)
+        for _ in range(20):
+            kst = kstep_g(env_.dyn, kst, tg_)
+            pst = pstep_g(env_.dyn, pst, tg_)
+        passed_k = kst.ball_pos[:, 0] < kst.base_pos[:, 0]
+        passed_p = pst.ball_pos[:, 0] < pst.base_pos[:, 0]
+        chain = {f: float((getattr(kst, f) - getattr(pst, f)).abs().max())
+                 for f in ("q", "base_pos", "ball_pos", "ball_vel")}
+        log(f"phase8 goalie shot B={B_} 20 steps chained: max|kernel-plain|"
+            f" " + " ".join(f"{k}={v:.3e}" for k, v in chain.items())
+            + f"; balls past the robot kernel {int(passed_k.sum())} plain "
+            f"{int(passed_p.sum())}; mean ball x kernel "
+            f"{float(kst.ball_pos[:, 0].mean()):.4f} plain "
+            f"{float(pst.ball_pos[:, 0].mean()):.4f}")
+        assert torch.equal(passed_k, passed_p), (passed_k, passed_p)
+        time_launch(f"goalie_box_b{B_}", tables_g, most[1], p_)
+
+    # The kick task at substeps = 8 (h = 1/480 s), tracking's configuration.
+    kick8 = KickTask(TaskConfig(substeps=8), device="cuda")
+    tables_8 = kick8._step_physics_batch.tables
+    env_, tg_ = task_inputs(kick8, 1, 88, 0.2)
+    x_ = ss.pack_state(env_.physics)
+    p_ = ss.pack_params(kick8.model, env_.dyn, tg_)
+    _, err_, _ = one_substep(tables_8, x_, p_)
+    assert err_ < 1e-3, err_
+    max_abs_err = max(max_abs_err, err_)
+    log(f"phase8 kick substeps=8 one substep B=1: max|kernel-plain| on the "
+        f"state rows = {err_:.3e}")
+    check_steps(kick8.model, kick8.scene, env_.physics, env_.dyn, tg_, 5,
+                "kick substeps=8 B=1 5 steps", phase="phase8")
+    time_launch("kick_substeps8_b1", tables_8, x_, p_)
+
+    engine.substep = plain_forbidden
+    try:
+        # ------------ phase 9: serving the goalie, orient and walk -------
+        from bez_isaacgym_tpu_torch.eval import task_eval
+
+        def ckpt(run):
+            return str(root / "runs" / run / f"{run}_best.ckpt")
+
+        # Bars about 3 binomial standard deviations (n=64) from each shipped
+        # artifact, on the side that measures quality; the walk artifact
+        # documents a policy that fails, so its bars have two sides.
+        run_eval("phase9", "goalie policy Bez_Goalie_best",
+                 lambda: task_eval.eval_goalie(ckpt("Bez_Goalie"),
+                                               num_envs=64, steps=1500),
+                 # The artifact's fall rate, 0.078, was measured on a TPU;
+                 # the JAX package in f32 on the CPU falls 50/256 = 0.195
+                 # over seeds 0-3 (9, 12, 15 and 14 of 64): the fall bar is
+                 # 3 standard deviations (n=64) from that rate, 0.34.  The
+                 # two packages' generators draw different robots at one
+                 # seed; the run below compares them from the same robots.
+                 4, [("block_rate", ">=", 0.93), ("fall_rate", "<=", 0.34)],
+                 max_ticks=1500)
+        # The goalie from the JAX eval's own initial states at seeds 0-3
+        # (tests/torch_goalie_same_states.py --write), 256 envs in one eval
+        # through the kernel.  From these robots the JAX package in f32
+        # blocks 250/256 and falls 50/256; the bars are 3 binomial standard
+        # deviations (n=256) from those: 0.948 and 0.269.
+        same = load_env_states(
+            root / "tests" / "data" / "goalie_jax_reset_states.npz")
+        resets = []
+
+        def first_from_jax(self, gen, n, dr_step=0):
+            # The eval's first reset takes the JAX states; the auto-resets
+            # after each env's first episode draw as usual.
+            resets.append(n)
+            if len(resets) == 1:
+                assert n == same.progress.shape[0], n
+                return same
+            return BezTask.reset(self, gen, n, dr_step)
+
+        GoalieTask.reset = first_from_jax
+        try:
+            run_eval("phase9", "goalie from the JAX eval's states, seeds 0-3",
+                     lambda: task_eval.eval_goalie(ckpt("Bez_Goalie"),
+                                                   num_envs=256, steps=1500),
+                     4, [("block_rate", ">=", 0.948),
+                         ("fall_rate", "<=", 0.269)],
+                     max_ticks=1500, num_envs=256)
+        finally:
+            del GoalieTask.reset
+        assert resets and resets[0] == 256, resets
+        run_eval("phase9", "orient policy Bez_Orient_best",
+                 lambda: task_eval.eval_orient(ckpt("Bez_Orient"),
+                                               num_envs=64, steps=600),
+                 4, [("within_0.2rad", ">=", 0.93),
+                     ("upright_rate", ">=", 0.93),
+                     ("episodes_finished", "==", 64),
+                     ("mean_final_angle_err_rad", "<=", 0.2)],
+                 max_ticks=600)
+        res_w = run_eval("phase9", "walk policy Bez_Walk_best",
+                         lambda: task_eval.eval_walk(ckpt("Bez_Walk"),
+                                                     num_envs=64, steps=600),
+                         4, [("reach_rate_0.25m", ">=", 0.09),
+                             ("reach_rate_0.25m", "<=", 0.41),
+                             ("fall_rate", ">=", 0.82)], max_ticks=600)
+        log(f"phase9 walk policy: win_rate={res_w['win_rate']:.6f} (report "
+            f"only; artifact 0.0)")
+
+        # ------------ phase 10: tracking through the classical stack ------
+        from bez_isaacgym_tpu_torch.control.controller import \
+            SoccerbotController
+        from bez_isaacgym_tpu_torch.control.trajectories import Trajectory
+        from bez_isaacgym_tpu_torch.control.transformation import \
+            Transformation
+        from bez_isaacgym_tpu_torch.eval import tracking
+
+        recorded = json.loads((root / "docs" / "TRACKING.json").read_text())
+        # Each drive steps once per point of its 60 Hz plan: the kick
+        # skill's keyframes, and the walk planner's path to 0.5 m.
+        n_kick = len(np.arange(0.0, Trajectory("simulation_rightkick")
+                               .max_time, 1 / 60))
+        walk_times, _ = SoccerbotController().plan_joint_trajectory(
+            Transformation.from_xy_theta(0.5 * tracking.STRIDE_GAIN, 0.0,
+                                         0.0))
+        n_walk = len(np.arange(0, walk_times[-1], 1 / 60))
+        for label, fn, substeps, n_plan, bars in (
+                ("kick skill tracking", tracking.kick_skill_tracking, 8,
+                 n_kick, [("kick_rel_tracking_err", "<", 0.02),
+                          ("kick_joint_rms_rad", "<", 0.02)]),
+                ("walk tracking", tracking.walk_tracking, 4, n_walk,
+                 [("walk_position_err_frac", "<", 0.02),
+                  ("walk_final_x_m", ">", 0.45),
+                  ("walk_final_height_m", ">", 0.30),
+                  ("walk_final_height_m", "<", 0.36),
+                  ("walk_rel_tracking_err", "<", 0.115)])):
+            res = run_eval("phase10", label, fn, substeps, bars,
+                           ticks_expected=n_plan)
+            log(f"phase10 {label}: recorded reference values (docs/"
+                f"TRACKING.json, not targets): " + " ".join(
+                    f"{k}={recorded[k]:.6f}" for k in res
+                    if isinstance(recorded.get(k), float)))
+    finally:
+        engine.substep = real_substep
     assert not misses, misses
 
     kernels = [{
@@ -638,6 +986,9 @@ def main() -> int:
         "ms_b2048": ms_k64,
         "ms_b2560_substeps4": ms_sub4[2560],
         "ms_b6144_substeps4": ms_sub4[6144],
+        "bound_ms_b2048": b2048.ms,
+        **{f"{m}_{k}": v[m] for k, v in p8.items() for m in ("ms",
+                                                             "bound_ms")},
         "launches_by_path": launches_by_path,
         "envs_per_block": lc.envs_per_block,
     }]

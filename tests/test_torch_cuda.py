@@ -146,3 +146,57 @@ def test_player_on_cuda_matches_the_player_on_the_cpu(cuda):
     assert a_card.device.type == "cuda"
     # One f32 MLP on two devices (TF32 off): 1e-5.
     assert float((a_card.cpu() - a_cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [1, 64, 2048])
+def test_kernel_matches_plain_without_the_ball(cuda, B):
+    """The walk and orient scenes (has_ball=False, substeps=4): the state
+    rows at phase 1's bar, the ball's rows copied through unchanged."""
+    from bez_isaacgym_tpu_torch.tasks.walk import WalkTask
+
+    task = WalkTask(device="cuda")
+    tables = task._step_physics_batch.tables
+    assert not tables.cfg.has_ball
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    env = task.reset(gen, B)
+    _, tg = task._pre_physics(
+        env, 0.2 * torch.randn((B, 18), generator=gen, device=cuda), gen)
+    x = ss.pack_state(env.physics)
+    p = ss.pack_params(task.model, env.dyn, tg)
+    out = ss.substep(tables, x, p)
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(task.model.nq)
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+    ball = slice(2 * task.model.nq + 13, n)
+    assert torch.equal(out[ball], x[ball]) and torch.equal(ref[ball], x[ball])
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_kernel_matches_plain_on_the_goalie_shot(cuda, B):
+    """The goalie's box model, Kd = 0, the 10 m/s shot: one substep at a
+    time through the ball's arrival (20 control steps, 80 substeps), each
+    from the kernel's own state; the ball meets a box.  The bar is 1e-3,
+    or twice the plain version's own f32 error against f64 on the same
+    substep where that is larger (the first substep's ground impulse on
+    the box feet leaves f32 errors near 1e-3 in the plain version)."""
+    from bez_isaacgym_tpu_torch.tasks.goalie import GoalieTask
+
+    task = GoalieTask(device="cuda")
+    tables = task._step_physics_batch.tables
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    env = task.reset(gen, B)
+    _, tg = task._pre_physics(env, torch.zeros((B, 18), device=cuda), gen)
+    x = ss.pack_state(env.physics)
+    p = ss.pack_params(task.model, env.dyn, tg)
+    n = ss.state_rows(task.model.nq)
+    hits = 0
+    for _ in range(20 * task.cfg.substeps):
+        hits += int(ss.contact_activity(tables, x).box.sum())
+        out = ss.substep(tables, x, p)
+        ref = ss.substep_plain(tables, x, p)
+        ref64 = ss.substep_plain(tables, x.double(), p.double())
+        floor = float((ref[:n].double() - ref64[:n]).abs().max())
+        assert float((out[:n] - ref[:n]).abs().max()) <= max(1e-3,
+                                                             2 * floor)
+        x = out[:n]
+    assert hits > 0

@@ -65,6 +65,30 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+NEW_MODULES = ("tasks/walk.py", "tasks/orient.py", "tasks/goalie.py",
+               "tasks/registry.py", "eval/task_eval.py", "eval/tracking.py",
+               "control/controller.py", "control/warmstart.py")
+# numpy modules the port keeps as copies of the JAX package's: equal to
+# them once the package name is swapped.
+CONTROL_COPIES = ("transformation", "path", "footpath", "crotchpath", "ik",
+                  "soccerbot")
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES + tuple(
+    f"control/{m}.py" for m in CONTROL_COPIES))
+def test_new_modules_are_scanned(rel):
+    assert PORT / rel in PORT_FILES
+
+
+@pytest.mark.parametrize("name", CONTROL_COPIES)
+def test_control_copies_import_nothing_of_the_jax_package(name):
+    port = (PORT / "control" / f"{name}.py").read_text()
+    ref = (ROOT / "bez_isaacgym_tpu" / "control" / f"{name}.py").read_text()
+    assert "bez_isaacgym_tpu." not in port.replace("bez_isaacgym_tpu_torch.",
+                                                   "")
+    assert port == ref.replace("bez_isaacgym_tpu.", "bez_isaacgym_tpu_torch.")
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_every_subpackage_is_scanned(sub):
     scanned = [p for p in PORT_FILES if (PORT / sub) in p.parents]
@@ -107,13 +131,19 @@ def test_port_trajectories_are_exactly_the_jax_packages():
 
 
 def _entry_points():
+    from bez_isaacgym_tpu_torch.eval import task_eval, tracking
     from bez_isaacgym_tpu_torch.eval.kick_eval import eval_mppi, eval_policy
     from bez_isaacgym_tpu_torch.rl.players import (PpoPlayerContinuous,
                                                    PpoPlayerDiscrete,
                                                    SACPlayer)
-    return (KickTask.__init__, BezTask.__init__, resolve_device,
+    from bez_isaacgym_tpu_torch.tasks.registry import make_task, task_map
+    return (BezTask.__init__, resolve_device,
             PpoPlayerContinuous.__init__, PpoPlayerDiscrete.__init__,
-            SACPlayer.__init__, eval_policy, eval_mppi)
+            SACPlayer.__init__, eval_policy, eval_mppi, make_task,
+            task_eval.eval_goalie, task_eval.eval_orient,
+            task_eval.eval_walk, tracking.kick_skill_tracking,
+            tracking.walk_tracking,
+            *(cls.__init__ for cls in task_map.values()))
 
 
 def test_entry_points_default_to_cuda():
@@ -138,6 +168,28 @@ def test_no_gpu_raises_instead_of_running_on_cpu():
         kick_eval.eval_policy("", num_envs=1, steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         kick_eval.main(["--solver", "mppi", "--num-envs", "1"])
+
+
+@pytest.mark.parametrize("name", ["bez_walk", "bez_orient", "bez_goalie"])
+def test_no_gpu_raises_for_the_new_entry_points(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    from bez_isaacgym_tpu_torch.eval import task_eval, tracking
+    from bez_isaacgym_tpu_torch.tasks.registry import make_task
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_task(name)
+    short = name.removeprefix("bez_")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(task_eval, f"eval_{short}")("", num_envs=1, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        task_eval.main(["--task", short, "--checkpoint", ""])
+    tracker = (tracking.walk_tracking if short == "walk"
+               else tracking.kick_skill_tracking)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tracker()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tracking.main([])
 
 
 def test_cpu_task_uses_the_plain_engine():

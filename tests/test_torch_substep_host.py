@@ -291,6 +291,31 @@ def test_flops_and_bytes_per_env():
                                     "contact_damped_inertia"}
 
 
+def test_bound_without_the_ball():
+    """Without a ball the bound counts none of the ball's work: neither its
+    13 state rows in and out nor its contact, gravity and integration
+    operations.  Its time is the larger of bytes over HBM's rate and
+    operations over the fp32 peak."""
+    model = bez.load_bez_model("stl")
+    cfg = engine.SceneConfig(substeps=4, has_ball=False)
+    tables = ss.KernelTables(model, cfg)
+    assert ss.bytes_per_env(model, has_ball=False) == 1424 - 2 * 13 * 4
+    st, _, _ = _inputs(model, cfg, 16, seed=5, base_z=0.32)
+    x = ss.pack_state(st)
+    terms = ss.flop_terms(tables, ss.contact_activity(tables, x))
+    for k in ("ball_plane", "box_test", "box_active", "ball_gravity",
+              "integrate_ball"):
+        assert terms[k] == 0, k
+    b = ss.bound(tables, x)
+    assert b.bytes == 1320 * 16 and b.flops == sum(terms.values())
+    t_b = b.bytes / ss.PEAK_BYTES_PER_S * 1e3
+    t_o = b.flops / ss.PEAK_FP32_PER_S * 1e3
+    assert b.ms == max(t_b, t_o)
+    assert b.by == ("bytes" if t_b >= t_o else "operations")
+    with_ball = ss.KernelTables(model, engine.SceneConfig(substeps=4))
+    assert ss.bound(with_ball, x).bytes == 1424 * 16
+
+
 def test_contact_activity_matches_the_plain_contacts():
     """Every body the plain substep pushes is counted as loaded, and these
     inputs (feet on the ground, the ball at the left leg, its centre above
