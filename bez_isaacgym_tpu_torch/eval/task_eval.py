@@ -8,7 +8,9 @@ Port of `bez_isaacgym_tpu/eval/task_eval.py`:
 
 The physics runs through the CUDA substep kernel on the card.  Per-env
 tallies of each env's first episode stay on the device; the host reads one
-flag per step, to stop once every env has finished.
+flag per step, to stop once every env has finished.  The walk eval also
+takes a recurrent (LSTM) checkpoint (`--rnn-units`, `--seq-len`): the
+policy is recurrent PPO's `act` with a per-env carry zeroed on done.
 
 Usage:
     python -m bez_isaacgym_tpu_torch.eval.task_eval --task goalie \\
@@ -17,6 +19,8 @@ Usage:
         --checkpoint runs/Bez_Orient/Bez_Orient_best.ckpt
     python -m bez_isaacgym_tpu_torch.eval.task_eval --task walk \\
         --checkpoint runs/Bez_Walk/Bez_Walk_best.ckpt
+    python -m bez_isaacgym_tpu_torch.eval.task_eval --task walk \\
+        --checkpoint <an LSTM walk checkpoint> --rnn-units 128 --seq-len 4
 """
 
 from __future__ import annotations
@@ -33,20 +37,44 @@ from bez_isaacgym_tpu_torch import resolve_device
 from bez_isaacgym_tpu_torch.ops.quat import quat_axis
 from bez_isaacgym_tpu_torch.tasks.base import BezTask, StepOutput
 
-RNN_WAITS = ("recurrent (LSTM) checkpoints need rl/ppo_rnn.py, which is "
-             "not ported yet: ROADMAP section 1 item 17")
+def _policy(task: BezTask, checkpoint: str, num_envs: int,
+            rnn_units: int, seq_len: int):
+    """(act, on_done): deterministic actions from a checkpoint, and the
+    hook that zeroes a recurrent policy's carry where an episode ended."""
+    if rnn_units <= 0:
+        from bez_isaacgym_tpu_torch.rl.players import PpoPlayerContinuous
+
+        player = PpoPlayerContinuous(task, checkpoint_path=checkpoint,
+                                     device=task.device)
+        return (lambda obs: player.get_action(obs, True)), (lambda d: None)
+    from bez_isaacgym_tpu_torch import convert
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+    from bez_isaacgym_tpu_torch.rl.ppo_rnn import PPORNN, zero_done
+    from bez_isaacgym_tpu_torch.utils.checkpoint import read_msgpack
+
+    ppo = PPORNN(task, num_envs, PPOConfig(rnn_units=rnn_units,
+                                           seq_len=seq_len, horizon=seq_len))
+    ts = ppo.check(convert.train_state(read_msgpack(checkpoint)))
+    carry = [ppo.initial_carry()]
+
+    def act(obs):
+        a, carry[0] = ppo.act(ts, obs, carry[0])
+        return a
+
+    def on_done(done):
+        carry[0] = zero_done(carry[0], done)
+
+    return act, on_done
 
 
 def _rollout(task: BezTask, checkpoint: str, num_envs: int, steps: int,
-             seed: int, on_step):
-    """Shared closed-loop policy loop (MLP checkpoints); `on_step(out,
-    live)` folds one step into the caller's device tallies.  Returns the
-    final state."""
-    from bez_isaacgym_tpu_torch.rl.players import PpoPlayerContinuous
-
+             seed: int, on_step, rnn_units: int = 0, seq_len: int = 4):
+    """Shared closed-loop policy loop; `on_step(out, live)` folds one step
+    into the caller's device tallies.  rnn_units > 0 runs a recurrent
+    (LSTM) checkpoint, its per-env carry zeroed on done (runner.play's
+    recurrent path).  Returns the final state."""
     dev = task.device
-    player = PpoPlayerContinuous(task, checkpoint_path=checkpoint,
-                                 device=dev)
+    act, on_done = _policy(task, checkpoint, num_envs, rnn_units, seq_len)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = task.reset(gen, num_envs)
     # The first obs observes the reset states (no zero-action step).
@@ -55,10 +83,10 @@ def _rollout(task: BezTask, checkpoint: str, num_envs: int, steps: int,
     obs, state = task.observe(state, zero)
     finished = torch.zeros(num_envs, dtype=torch.bool, device=dev)
     for _ in range(steps):
-        out: StepOutput = task.step_batch(state, player.get_action(obs, True),
-                                          gen)
+        out: StepOutput = task.step_batch(state, act(obs), gen)
         on_step(out, ~finished)
         finished |= out.done
+        on_done(out.done)
         state, obs = out.state, out.obs
         if bool(finished.all()):
             break
@@ -158,20 +186,17 @@ def eval_orient(checkpoint: str, num_envs: int = 64, steps: int = 600,
 def eval_walk(checkpoint: str, num_envs: int = 64, steps: int = 600,
               seed: int = 0, goal_range: float = 2.0,
               goal_range_min: float = 0.0, rnn_units: int = 0,
-              use_kernel: bool = True, device="cuda"):
+              seq_len: int = 4, use_kernel: bool = True, device="cuda"):
     """Goal-reach stats for the walk task (goal uniform in [-2,2]^2).
 
     win        = the task's own 4-condition win state fired (near goal +
                  near default pose + low ang/lin vel, walk_env.py:943-965)
     reached    = closest approach to the goal < 0.25 m
     final_dist = distance to goal when the episode ended
-    rnn_units > 0 (an LSTM checkpoint) waits for ROADMAP item 17, and
-    with it the JAX eval's seq_len.
+    rnn_units > 0 evaluates an LSTM checkpoint (seq_len as trained).
     """
     from bez_isaacgym_tpu_torch.tasks.walk import WalkTask, walk_config
 
-    if rnn_units > 0:
-        raise NotImplementedError(RNN_WAITS)
     dev = resolve_device(device)
     task = WalkTask(dataclasses.replace(
         walk_config(), goal_range=goal_range, goal_range_min=goal_range_min,
@@ -201,7 +226,8 @@ def eval_walk(checkpoint: str, num_envs: int = 64, steps: int = 600,
         final["height"] = torch.where(d, height, final["height"])
         flag["fell"] |= d & (height < 0.275)
 
-    _rollout(task, checkpoint, num_envs, steps, seed, on_step)
+    _rollout(task, checkpoint, num_envs, steps, seed, on_step,
+             rnn_units=rnn_units, seq_len=seq_len)
     md, fd, fh = _np(min_dist), _np(final["dist"]), _np(final["height"])
     ok = ~np.isnan(fd)
     return {
@@ -237,8 +263,8 @@ def main(argv=None) -> dict:
                     help="walk only: goal box half-width (2.0 = reference)")
     ap.add_argument("--goal-range-min", type=float, default=0.0)
     ap.add_argument("--rnn-units", type=int, default=0,
-                    help=">0: evaluate a recurrent (LSTM) checkpoint (not "
-                         "ported yet)")
+                    help=">0: evaluate a recurrent (LSTM) checkpoint")
+    ap.add_argument("--seq-len", type=int, default=4)
     ap.add_argument("--plain-engine", action="store_true",
                     help="step the plain PyTorch engine instead of the CUDA "
                          "substep kernel (to tell the kernel from the rest "
@@ -255,7 +281,8 @@ def main(argv=None) -> dict:
         return eval_walk(args.checkpoint, args.num_envs, args.steps or 600,
                          goal_range=args.goal_range,
                          goal_range_min=args.goal_range_min,
-                         rnn_units=args.rnn_units, **common)
+                         rnn_units=args.rnn_units, seq_len=args.seq_len,
+                         **common)
     return eval_orient(args.checkpoint, args.num_envs, args.steps or 600,
                        **common)
 

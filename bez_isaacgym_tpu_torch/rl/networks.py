@@ -5,8 +5,8 @@ a continuous head with a state-independent log-std, a value head, running
 mean/std normalization, and the recurrent variant whose cell follows flax's
 `OptimizedLSTMCell`.  Weights come across from the JAX package's
 checkpoints through `bez_isaacgym_tpu_torch.convert`; a network built here
-is initialized as flax initializes it (LeCun-normal kernels, zero biases and
-log-std), from an explicit generator.
+is initialized as flax initializes it (LeCun-normal kernels, orthogonal
+recurrent kernels, zero biases and log-std), from an explicit generator.
 """
 
 from __future__ import annotations
@@ -20,11 +20,16 @@ from torch.nn import functional as F
 
 Tensor = torch.Tensor
 F32 = torch.float32
+# rl-games action-space parity (rl/ppo.py:126-132): env actions are
+# ACTION_LIMIT * clip(a, -1, 1).
+ACTION_LIMIT = 1.0
 
 
 def init_flax_like(module: nn.Module, gen: torch.Generator) -> None:
     """LeCun-normal weights (flax's Dense default: truncated normal, std
-    sqrt(1/fan_in) / .87962566) and zero biases, for every Linear."""
+    sqrt(1/fan_in) / .87962566) and zero biases, for every Linear; an
+    LSTM cell's four recurrent kernels orthogonal, each on its own (flax's
+    `recurrent_kernel_init`)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
@@ -33,6 +38,10 @@ def init_flax_like(module: nn.Module, gen: torch.Generator) -> None:
                                       b=2 * std, generator=gen)
                 if m.bias is not None:
                     m.bias.zero_()
+        for m in module.modules():
+            if isinstance(m, LSTMCell):
+                for gate in m.hidden.weight.chunk(4, dim=0):
+                    nn.init.orthogonal_(gate, generator=gen)
 
 
 def _mlp(n_in: int, units: Sequence[int]) -> nn.ModuleList:
@@ -74,6 +83,21 @@ class CentralValue(nn.Module):
 
     def forward(self, obs: Tensor) -> Tensor:
         return self.value(_trunk(self.hidden, obs))[..., 0]
+
+
+class WithCentralValue(nn.Module):
+    """The runner's central-value option: an ActorCritic (`ac`) whose value
+    head is replaced by a separate CentralValue network (`cv`) on the same
+    observations."""
+
+    def __init__(self, ac: ActorCritic, cv: CentralValue):
+        super().__init__()
+        self.ac = ac
+        self.cv = cv
+
+    def forward(self, obs: Tensor):
+        mu, log_std, _ = self.ac(obs)
+        return mu, log_std, self.cv(obs)
 
 
 class RunningMeanStd(NamedTuple):

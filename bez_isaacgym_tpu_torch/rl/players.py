@@ -20,7 +20,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from bez_isaacgym_tpu_torch import convert, resolve_device
-from bez_isaacgym_tpu_torch.rl.networks import (ActorCritic, RunningMeanStd,
+from bez_isaacgym_tpu_torch.rl.networks import (ACTION_LIMIT, ActorCritic,
+                                                RunningMeanStd,
                                                 init_flax_like)
 from bez_isaacgym_tpu_torch.tasks.base import BezTask
 from bez_isaacgym_tpu_torch.utils.checkpoint import read_msgpack
@@ -32,9 +33,6 @@ F32 = torch.float32
 # NamedTuple becomes a dict of its fields.
 TRAIN_STATE_FIELDS = ("params", "opt_state", "obs_rms", "value_rms", "lr",
                       "epoch", "key")
-# rl-games action-space parity (rl/ppo.py:126-132): env actions are
-# ACTION_LIMIT * clip(a, -1, 1).
-ACTION_LIMIT = 1.0
 
 
 def _read_layout(path: str, fields) -> dict:

@@ -1,10 +1,11 @@
-"""Checkpoint reading: the JAX package's flax msgpack files, without flax.
+"""Checkpoints in the JAX package's flax msgpack format, without flax.
 
 Port of `bez_isaacgym_tpu/utils/checkpoint.py`.  The JAX package writes a
 training state with `flax.serialization.to_bytes`: msgpack of a nested state
 dict whose array leaves are msgpack extension objects.  `read_msgpack`
-decodes that format here, so serving a trained policy needs neither flax
-nor the msgpack package:
+decodes that format here and `save` writes it, so serving, resuming and
+writing a checkpoint need neither flax nor the msgpack package, and the
+JAX package's `flax.serialization.from_bytes` loads what the port writes:
 
 - ext type 1: an ndarray, payload msgpack of (shape, dtype name, C-order
   bytes);
@@ -13,8 +14,10 @@ nor the msgpack package:
 - any other ext type comes back as `ExtType(code, data)`.
 
 Tuples come back as dicts keyed "0", "1", ... as flax writes them.  Arrays
-that flax split into chunks (leaves over 2**30 bytes) are refused.
-`save` waits for the PPO slice.
+that flax split into chunks (leaves over 2**30 bytes) are refused, and not
+written.  `packb` encodes as msgpack-python does (the smallest form of each
+integer, floats as float64, str and bin types), so a file read and written
+again keeps its bytes.
 """
 
 from __future__ import annotations
@@ -145,6 +148,106 @@ def read_msgpack(path: str):
     """A flax msgpack checkpoint as a nested dict of numpy arrays."""
     with open(path, "rb") as f:
         return unpackb(f.read())
+
+
+def _head(fmts: tuple, n: int, fix: int | None = None,
+          fix_max: int = -1) -> bytes:
+    """A msgpack length header: the fix form below fix_max, else the first
+    of fmts (code, struct format, largest n) that holds n."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in fmts:
+        if n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+_STR = ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF), (0xDB, ">I", 0xFFFFFFFF))
+_BIN = ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF), (0xC6, ">I", 0xFFFFFFFF))
+_ARRAY = ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF))
+_MAP = ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF))
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+_EXT = ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF), (0xC9, ">I", 0xFFFFFFFF))
+
+
+def _int(v: int) -> bytes:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                              (0xCE, ">I", 0, 0xFFFFFFFF),
+                              (0xCF, ">Q", 0, 0xFFFFFFFFFFFFFFFF),
+                              (0xD0, ">b", -0x80, 0x7F),
+                              (0xD1, ">h", -0x8000, 0x7FFF),
+                              (0xD2, ">i", -0x80000000, 0x7FFFFFFF),
+                              (0xD3, ">q", -2**63, 2**63 - 1)):
+        if lo <= v <= hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack: integer {v} out of range")
+
+
+def _ndarray_to_bytes(a: np.ndarray) -> bytes:
+    """flax's ndarray payload: msgpack of (shape, dtype name, C bytes)."""
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError(f"msgpack: cannot write an array of {a.dtype}")
+    if a.nbytes > 2**30:
+        raise ValueError("msgpack: a leaf over 2**30 bytes would be chunked;"
+                         " chunked arrays are not supported")
+    return packb((tuple(int(d) for d in a.shape), a.dtype.name,
+                  a.tobytes("C")))
+
+
+def packb(obj) -> bytes:
+    """Encode a nested dict / list / tuple of str, bytes, bool, int, float,
+    None, numpy arrays (ext 1) and numpy scalars (ext 3) as msgpack."""
+    out = bytearray()
+
+    def put(x):
+        if x is None:
+            out.append(0xC0)
+        elif x is True or x is False:
+            out.append(0xC3 if x else 0xC2)
+        elif type(x) is int:
+            out.extend(_int(x))
+        elif type(x) is float:
+            out.extend(b"\xcb" + struct.pack(">d", x))
+        elif type(x) is str:
+            b = x.encode("utf-8")
+            out.extend(_head(_STR, len(b), 0xA0, 31) + b)
+        elif type(x) is bytes:
+            out.extend(_head(_BIN, len(x)) + x)
+        elif type(x) in (list, tuple):
+            out.extend(_head(_ARRAY, len(x), 0x90, 15))
+            for v in x:
+                put(v)
+        elif type(x) is dict:
+            out.extend(_head(_MAP, len(x), 0x80, 15))
+            for k, v in x.items():
+                put(k)
+                put(v)
+        elif isinstance(x, (np.ndarray, np.generic)):
+            code = _EXT_NDARRAY if isinstance(x, np.ndarray) \
+                else _EXT_NPSCALAR
+            data = _ndarray_to_bytes(np.asarray(x))
+            n = len(data)
+            head = bytes([_FIXEXT[n]]) if n in _FIXEXT else _head(_EXT, n)
+            out.extend(head + struct.pack(">b", code) + data)
+        else:
+            raise TypeError(f"msgpack: cannot write {type(x).__name__}")
+
+    put(obj)
+    return bytes(out)
+
+
+def save(path: str, train_state) -> None:
+    """Write the port's PPO `TrainState` in the JAX package's TrainState
+    layout (`convert.flax_train_state`), as `flax.serialization.to_bytes`
+    would."""
+    from bez_isaacgym_tpu_torch import convert
+
+    data = packb(convert.flax_train_state(train_state))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def checkpoint_name(run_name: str, epoch: int, reward: float) -> str:

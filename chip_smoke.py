@@ -69,14 +69,37 @@ Phase 10 the classical stack: eval/tracking.py's kick-skill tracking
          (substeps=8) and closed-loop walk tracking (substeps=4) at B=1,
          the plain engine forbidden, held to tests/test_tracking.py's
          bounds; ms per control step.
-In phases 6, 7, 9 and 10 the env steps are counted at BezTask.step_batch,
-apart from the launch counter, and the launches must be exactly the
-substeps (times H+1 for MPPI) of every step; a tracking drive's steps must
-be its plan's length.
+Phase 11 training (PPO and recurrent PPO through rl/runner.py, the plain
+         engine forbidden, every Runner writing to a temporary directory):
+         (a) the kernel against its plain version at training's batch
+         B=4096, substeps=4, the kick scene with the ball, on nominal
+         params and on params the DR sampler draws at Bez_Kick_DR's config
+         past the schedules' ramp (full width), from the task's reset
+         states and with the ball against the leg: one substep, one and
+         five control steps at phase 1's bars, ms per launch and bound_ms;
+         (b) 20 iterations fine-tuning runs/Bez_Kick/Bez_Kick_best.ckpt
+         (its Adam moments included) at 4096 envs, units (400, 200, 100),
+         horizon 32, minibatch 32768, 5 mini-epochs, lr_max 2e-5: rollout
+         and update ms per iteration (CUDA events), frames/s, the idle
+         share of one profiled iteration, the mean completed-episode
+         return against 3 standard errors of the JAX package's f32 run of
+         the same fine-tune (tests/torch_training_reference.py), and the
+         saved checkpoint restored by PpoPlayerContinuous acting as the
+         trainer; (c) 100 iterations from scratch at 4096 envs, seed 42:
+         ep_reward_ema must rise by half the JAX record's rise over its
+         first 100 iterations; (d) Runner.play of the LSTM checkpoint (64
+         envs, 600 steps) against the JAX package's f32 play of it, then 2
+         recurrent training iterations at 4096 envs from it.  Launches must
+         be substeps x horizon per iteration exactly.
+In phases 6, 7, 9, 10 and 11 the env steps are counted at
+BezTask.step_batch, apart from the launch counter, and the launches must be
+exactly the substeps (times H+1 for MPPI) of every step; a tracking
+drive's steps must be its plan's length.
 Timings are CUDA-event times on this card.  Every phase asserts; any
 failure exits non-zero.  The last line is the run's result as JSON.
 """
 
+import dataclasses
 import json
 import math
 import operator
@@ -969,6 +992,280 @@ def main() -> int:
                     if isinstance(recorded.get(k), float)))
     finally:
         engine.substep = real_substep
+
+    # ---------------- phase 11: training on the card ------------------------
+    import tempfile
+
+    from bez_isaacgym_tpu_torch.rl.runner import Runner
+    from bez_isaacgym_tpu_torch.tasks.dr import DomainRandConfig
+    from bez_isaacgym_tpu_torch.utils.config import parse_overrides
+
+    B_TR, HORIZON = 4096, 32
+    # 11a: the kernel at training's batch, on nominal params and on params
+    # the port's DR sampler draws at Bez_Kick_DR's config with dr_step past
+    # every linear schedule's ramp (schedule_steps 3000): full width.
+    dr_cfg = DomainRandConfig(enabled=True)
+    dr_full = max(getattr(dr_cfg, f.name).schedule_steps
+                  for f in dataclasses.fields(dr_cfg)
+                  if hasattr(getattr(dr_cfg, f.name), "schedule_steps"))
+    kick_tr = {"nominal": KickTask(TaskConfig(substeps=4), device="cuda"),
+               "dr": KickTask(TaskConfig(substeps=4, dr=dr_cfg),
+                              device="cuda")}
+    tables_tr = kick_tr["nominal"]._step_physics_batch.tables
+    p11 = {}
+    for label, task_ in kick_tr.items():
+        g = torch.Generator(device=dev).manual_seed(110)
+        env_ = task_.reset(g, B_TR, dr_step=dr_full if label == "dr" else 0)
+        dyn = env_.dyn
+        if label == "dr":
+            mass_, kp_ = dyn.mass_scale, dyn.kp / task_.base_params.kp
+            log(f"phase11 DR params B={B_TR} at dr_step={dr_full}: "
+                f"mass_scale [{float(mass_.min()):.3f}, "
+                f"{float(mass_.max()):.3f}]"
+                f" kp scale [{float(kp_.min()):.3f}, {float(kp_.max()):.3f}]"
+                f" friction [{float(dyn.ground_friction.min()):.3f}, "
+                f"{float(dyn.ground_friction.max()):.3f}] gravity z "
+                f"[{float(dyn.gravity[:, 2].min()):.3f}, "
+                f"{float(dyn.gravity[:, 2].max()):.3f}]")
+            assert float(mass_.min()) < 0.55 and float(mass_.max()) > 1.45
+            assert float(kp_.min()) < 0.55 and float(kp_.max()) > 1.45
+        acts_ = 0.3 * torch.randn((B_TR, 18), generator=g, device=dev)
+        tg_ = task_._pre_physics(env_, acts_, g)[1]
+        # The task's reset states (the training's start), and phase 1's
+        # ball against the leg with everything moving, on these params.
+        st_leg, _, _ = batch(stl, task_.scene, B_TR, seed=111, kick=True)
+        for states, what in ((env_.physics, "reset states"),
+                             (st_leg, "ball against the leg")):
+            x_ = ss.pack_state(states)
+            p_ = ss.pack_params(stl, dyn, tg_)
+            act_ = ss.contact_activity(tables_tr, x_)
+            _, err_, _ = one_substep(tables_tr, x_, p_)
+            assert err_ < 1e-3, (label, what, err_)
+            max_abs_err = max(max_abs_err, err_)
+            log(f"phase11 {label} params, {what}, B={B_TR} substeps=4 one "
+                f"substep: max|kernel-plain| on the state rows = "
+                f"{err_:.3e}; active ball-box pairs {int(act_.box.sum())}, "
+                f"ball-ground {int(act_.ball_plane)}")
+            for n_ in (1, 5):
+                check_steps(stl, task_.scene, states, dyn, tg_, n_,
+                            f"{label} params {what} B={B_TR} {n_} steps",
+                            phase="phase11")
+            if what == "reset states":
+                ms_tr = cuda_ms(torch,
+                                lambda: ss.substep(tables_tr, x_, p_),
+                                reps=50)
+                b_ = ss.bound(tables_tr, x_)
+                p11[label] = {"ms": ms_tr, "bound_ms": b_.ms}
+                log(f"phase11 timing {label} params B={B_TR} substeps=4: "
+                    f"kernel_ms={ms_tr:.5f} bound_ms={b_.ms:.6f} ({b_.by}; "
+                    f"bytes={b_.bytes} flops={b_.flops}; "
+                    f"{100 * b_.ms / ms_tr:.2f}% of bound) | {card_line()}")
+
+    def train_run(label, argv, iterations, profile_iter=None):
+        """Runner.train through its entry point, the plain engine
+        forbidden, the launch counter set to 0 just before and read just
+        after; CUDA events around each iteration's rollout, update and
+        whole train_iter; torch.profiler over iteration profile_iter."""
+        runner = Runner(parse_overrides(argv))
+        assert hasattr(runner.task._step_physics_batch, "tables"), label
+        ppo = runner.ppo
+        events = {"rollout": [], "update": [], "iter": []}
+        prof_box = {}
+
+        def timed(name, fn):
+            def wrapped(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                events[name].append((e0, e1))
+                return out
+            return wrapped
+
+        ppo.rollout = timed("rollout", ppo.rollout)
+        ppo.update = timed("update", ppo.update)
+        timed_iter = timed("iter", ppo.train_iter)
+
+        def train_iter(*a, **k):
+            if len(events["iter"]) + 1 != profile_iter:
+                return timed_iter(*a, **k)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t_p = time.time()
+                out = timed_iter(*a, **k)
+                torch.cuda.synchronize()
+                prof_box.update(wall_ms=1e3 * (time.time() - t_p))
+            prof_box["prof"] = prof
+            return out
+
+        ppo.train_iter = train_iter
+        steps_run = [0]
+
+        def counted_step_batch(self, *a, **k):
+            steps_run[0] += 1
+            return real_step_batch(self, *a, **k)
+
+        BezTask.step_batch = counted_step_batch
+        try:
+            ss.substep.launches = 0
+            t0 = time.time()
+            ts = runner.train(iterations)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            n = ss.substep.launches
+        finally:
+            BezTask.step_batch = real_step_batch
+        per_iter = 4 * HORIZON
+        assert steps_run[0] == HORIZON * iterations, (label, steps_run)
+        assert n == per_iter * iterations, (label, n, per_iter, iterations)
+        rows = [json.loads(line) for line in
+                (Path(runner.run_dir) / "metrics.jsonl").read_text()
+                .splitlines()]
+        assert [r["iter"] for r in rows] == list(range(1, iterations + 1))
+        assert all(math.isfinite(v) for r in rows for v in r.values()), label
+        ms = {k: [e0.elapsed_time(e1) for e0, e1 in v]
+              for k, v in events.items()}
+        # Steady iterations: after the first, without the profiled one.
+        keep = [i for i in range(1, iterations) if i + 1 != profile_iter] \
+            or list(range(iterations))
+        mean = {k: sum(v[i] for i in keep) / len(keep) for k, v in ms.items()}
+        fps = B_TR * HORIZON / (mean["iter"] / 1e3)
+        log(f"phase11 {label}: {iterations} iterations in s={secs:.2f}, "
+            f"launches={n} (= {per_iter} per iteration x {iterations}), env "
+            f"steps {steps_run[0]}; steady iteration ms={mean['iter']:.2f} "
+            f"(min {min(ms['iter'][i] for i in keep):.2f}, max "
+            f"{max(ms['iter'][i] for i in keep):.2f}) rollout_ms="
+            f"{mean['rollout']:.2f} update_ms={mean['update']:.2f} "
+            f"frames_per_s={fps:.0f}; first iteration ms={ms['iter'][0]:.2f}"
+            f" | {card_line()}")
+        out = {"ts": ts, "runner": runner, "rows": rows, "launches": n,
+               "ms": mean, "fps": fps}
+        if "prof" in prof_box:
+            ev = [e for e in prof_box["prof"].key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(dev_us(e) for e in ev) / 1e3
+            sub_ms = sum(dev_us(e) for e in ev
+                         if "bez_substep_kernel" in e.key) / 1e3
+            wall = prof_box["wall_ms"]
+            out.update(device_ms=dev_ms, idle_profiled=1 - dev_ms / wall,
+                       idle=1 - dev_ms / mean["iter"])
+            log(f"phase11 {label} profile of iteration {profile_iter}: "
+                f"wall_ms={wall:.2f} device_ms={dev_ms:.2f} "
+                f"substep_kernel_ms={sub_ms:.2f} other_kernels_ms="
+                f"{dev_ms - sub_ms:.2f} kernels={sum(e.count for e in ev)} "
+                f"idle_share_profiled={1 - dev_ms / wall:.3f} "
+                f"idle_share_unprofiled={1 - dev_ms / mean['iter']:.3f}")
+            for e in sorted(ev, key=dev_us, reverse=True)[:6]:
+                log(f"phase11   {dev_us(e) / 1e3:8.3f} ms {e.count:6d}x  "
+                    f"{e.key[:90]}")
+        return out
+
+    lstm_ckpt = root / "runs" / "Bez_Kick_LSTM" / "Bez_Kick_LSTM_best.ckpt"
+    lstm_over = ["train.rnn_units=128", "train.seq_len=4"]
+    engine.substep = plain_forbidden
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = Path(tmp)
+            # 11b: fine-tuning the shipped kick TrainState, Adam moments
+            # included, at full width (lr_max 2e-5: ppo.py's advice for a
+            # restored checkpoint).
+            start = read_msgpack(str(kick_ckpt))
+            ft = train_run("fine-tune Bez_Kick_best", [
+                "task=bez_kick", f"checkpoint={kick_ckpt}",
+                "train.lr_max=2e-5", f"num_envs={B_TR}", "log_frequency=1",
+                "save_frequency=20", "save_best_after=100000",
+                f"output_dir={runs / 'finetune'}"], 20, profile_iter=20)
+            ts = ft["ts"]
+            steps_ft = 20 * 4 * 5          # 4 minibatches x 5 mini-epochs
+            assert int(ts.opt_state.count) == \
+                int(start["opt_state"]["1"]["count"]) + steps_ft
+            assert int(ts.epoch) == int(start["epoch"]) + 20
+            done = sum(r["ep_count"] for r in ft["rows"])
+            pooled = sum(r["ep_reward_mean"] * r["ep_count"]
+                         for r in ft["rows"]) / done
+            res_ft = {"episodes": done, "mean_episode_return": pooled,
+                      "ep_reward_ema_20": ft["rows"][-1]["ep_reward_ema"]}
+            log(f"phase11 fine-tune: {json.dumps(res_ft)}")
+            # The JAX package's f32 run of the same fine-tune on the CPU
+            # (tests/torch_training_reference.py finetune: 256 envs, 20
+            # iterations) completed 2,224 episodes of mean return 22.0618,
+            # standard error 0.9024: the bar is 3 standard errors.
+            check_bars("phase11", "fine-tune Bez_Kick_best", res_ft,
+                       [("mean_episode_return", ">=", 19.355),
+                        ("mean_episode_return", "<=", 24.769)])
+            saved = next(Path(ft["runner"].run_dir).glob(
+                "Bez_Kick_20_rew_*.ckpt"))
+            player = PpoPlayerContinuous(ft["runner"].task, str(saved))
+            rms = ts.obs_rms
+            obs = rms.mean + 2.0 * torch.sqrt(rms.var) * torch.randn(
+                (64, 54), generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
+            err_save = float((player.get_action(obs)
+                              - ft["runner"].ppo.act(ts, obs)).abs().max())
+            assert err_save <= 1e-6, err_save
+            log(f"phase11 {saved.name} restored by PpoPlayerContinuous: "
+                f"max|player - trainer act| on 64 observations = "
+                f"{err_save:.3e}")
+
+            # 11c: learning from scratch at full width, seed 42.
+            sc = train_run("from scratch", [
+                "task=bez_kick", f"num_envs={B_TR}", "seed=42",
+                "log_frequency=1", "save_frequency=100000",
+                "save_best_after=100000", f"output_dir={runs / 'scratch'}"],
+                100)
+            ema = [r["ep_reward_ema"] for r in sc["rows"]]
+            res_sc = {"ep_reward_ema_1": ema[0], "ep_reward_ema_100": ema[-1],
+                      "rise": ema[-1] - ema[0]}
+            log(f"phase11 from scratch: {json.dumps(res_sc)}; ep_reward_ema "
+                f"every 10 iterations: "
+                + " ".join(f"{v:.3f}" for v in ema[9::10]))
+            # Half the rise of the JAX package's recorded start,
+            # runs/Bez_Kick_LSTM/metrics.jsonl iterations 1 -> 100 (-1.23 ->
+            # 0.65, on a TPU): a rise, not the TPU's value.
+            check_bars("phase11", "from scratch", res_sc,
+                       [("rise", ">=", 0.94)])
+
+            # 11d: the recurrent checkpoint served by Runner.play, then two
+            # recurrent training iterations from it.
+            play = Runner(parse_overrides([
+                "task=bez_kick", "test=True", f"checkpoint={lstm_ckpt}",
+                "num_envs=64", f"output_dir={runs / 'lstm_play'}",
+                *lstm_over]))
+            def lstm_play():
+                play.play(600)
+                return play.played
+
+            res_lstm = run_eval("phase11", "LSTM play Bez_Kick_LSTM_best",
+                                lstm_play, 4, [], ticks_expected=600)
+            # The JAX package's f32 Runner.play of this checkpoint on the
+            # CPU (tests/torch_training_reference.py lstm-play): 1,078
+            # episodes, mean reward 1.24345 (sd 0.2251); the port's draw is
+            # independent, so the bars are 3 standard errors of the
+            # difference of two such runs: the mean within 3 x sqrt(2) x
+            # 0.006857 = 0.0291, the count within 3 x sqrt(2 x 1078) = 139
+            # (Poisson).  The TPU artifact: 1,080 and 1.25.
+            check_bars("phase11", "LSTM play", res_lstm,
+                       [("mean_episode_reward", ">=", 1.2144),
+                        ("mean_episode_reward", "<=", 1.2725),
+                        ("episodes", ">=", 939), ("episodes", "<=", 1217)])
+            rnn = train_run("recurrent from Bez_Kick_LSTM_best", [
+                "task=bez_kick", f"checkpoint={lstm_ckpt}",
+                f"num_envs={B_TR}", "log_frequency=1",
+                "save_frequency=100000", "save_best_after=100000",
+                f"output_dir={runs / 'lstm_train'}", *lstm_over], 2)
+            log(f"phase11 recurrent iterations: " + " | ".join(
+                f"iter {r['iter']}: loss {r['loss']:.4f} kl {r['kl']:.4f} "
+                f"lr {r['lr']:.3e} ep_reward {r['ep_reward_mean']:.3f}"
+                for r in rnn["rows"]))
+    finally:
+        engine.substep = real_substep
+    for key, run_ in (("ppo_finetune_20_iterations", ft),
+                      ("ppo_from_scratch_100_iterations", sc),
+                      ("ppo_rnn_2_iterations", rnn)):
+        launches_by_path[key] = run_["launches"]
+    log(f"phase11 card: {card_line()}")
     assert not misses, misses
 
     kernels = [{
@@ -989,6 +1286,8 @@ def main() -> int:
         "bound_ms_b2048": b2048.ms,
         **{f"{m}_{k}": v[m] for k, v in p8.items() for m in ("ms",
                                                              "bound_ms")},
+        **{f"{m}_b4096_substeps4_{k}": v[m] for k, v in p11.items()
+           for m in ("ms", "bound_ms")},
         "launches_by_path": launches_by_path,
         "envs_per_block": lc.envs_per_block,
     }]

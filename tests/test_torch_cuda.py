@@ -200,3 +200,70 @@ def test_kernel_matches_plain_on_the_goalie_shot(cuda, B):
                                                              2 * floor)
         x = out[:n]
     assert hits > 0
+
+
+@pytest.mark.parametrize("params", ["nominal", "dr"])
+def test_kernel_matches_plain_at_the_training_batch(cuda, params):
+    """Training's batch: B=4096, substeps 4, the kick task's reset states
+    with the ball; on nominal params, and on params the DR sampler draws
+    at Bez_Kick_DR's config past the linear schedules' ramp (per-env mass,
+    friction, restitution, gravity, kp/kd, joint limits at full width).
+    One substep at test_kernel_matches_plain's bar, five control steps at
+    the bars chip_smoke.py holds the kernel to (tests/test_pallas.py's)."""
+    from bez_isaacgym_tpu_torch.tasks.dr import DomainRandConfig
+
+    task = KickTask(TaskConfig(substeps=4, dr=DomainRandConfig(
+        enabled=params == "dr")), device="cuda")
+    tables = task._step_physics_batch.tables
+    gen = torch.Generator(device=cuda).manual_seed(110)
+    B = 4096
+    env = task.reset(gen, B, dr_step=3000 if params == "dr" else 0)
+    if params == "dr":
+        assert float(env.dyn.mass_scale.min()) < 0.55
+        assert float(env.dyn.mass_scale.max()) > 1.45
+    _, tg = task._pre_physics(
+        env, 0.3 * torch.randn((B, 18), generator=gen, device=cuda), gen)
+    x = ss.pack_state(env.physics)
+    p = ss.pack_params(task.model, env.dyn, tg)
+    before = ss.substep.launches
+    out = ss.substep(tables, x, p)
+    torch.cuda.synchronize()
+    assert ss.substep.launches == before + 1
+    ref = ss.substep_plain(tables, x, p)
+    n = ss.state_rows(task.model.nq)
+    assert torch.isfinite(out).all()
+    assert float((out[:n] - ref[:n]).abs().max()) < 1e-3
+    kstep = ss.make_kernel_step_fn(task.model, task.scene)
+    pstep = engine.make_batched_step_fn(task.model, task.scene)
+    a = b = env.physics
+    for _ in range(5):
+        a, b = kstep(env.dyn, a, tg), pstep(env.dyn, b, tg)
+    for f, bar in (("q", 2e-3), ("base_pos", 2e-3), ("base_quat", 5e-3),
+                   ("ball_pos", 1e-3)):
+        assert float((getattr(a, f) - getattr(b, f)).abs().max()) <= bar, f
+
+
+def test_ppo_iteration_launches_the_kernel_for_every_substep(cuda, tmp_path):
+    """A PPO iteration on the card (64 envs, horizon 4, substeps 2, the
+    plain engine forbidden) launches the kernel substeps x horizon times,
+    and an LSTM one likewise."""
+    from bez_isaacgym_tpu_torch.rl.runner import Runner
+    from bez_isaacgym_tpu_torch.utils.config import parse_overrides
+
+    def forbidden(*a, **k):
+        raise AssertionError("the plain engine ran")
+
+    real = engine.substep
+    engine.substep = forbidden
+    try:
+        for extra in ([], ["train.rnn_units=16", "train.seq_len=2"]):
+            runner = Runner(parse_overrides([
+                "num_envs=64", "train.horizon=4", "train.minibatch_size=64",
+                "train.mini_epochs=2", "train.units=[32,32]",
+                "task_cfg.substeps=2", f"output_dir={tmp_path}", *extra]))
+            before = ss.substep.launches
+            runner.train(2)
+            torch.cuda.synchronize()
+            assert ss.substep.launches - before == 2 * 4 * 2
+    finally:
+        engine.substep = real

@@ -67,7 +67,10 @@ def test_port_file_imports_no_jax(path):
 
 NEW_MODULES = ("tasks/walk.py", "tasks/orient.py", "tasks/goalie.py",
                "tasks/registry.py", "eval/task_eval.py", "eval/tracking.py",
-               "control/controller.py", "control/warmstart.py")
+               "control/controller.py", "control/warmstart.py",
+               "rl/ppo.py", "rl/ppo_rnn.py", "rl/runner.py",
+               "utils/config.py", "utils/seeding.py", "utils/metrics.py",
+               "utils/checkpoint.py", "convert.py", "train.py", "play.py")
 # numpy modules the port keeps as copies of the JAX package's: equal to
 # them once the package name is swapped.
 CONTROL_COPIES = ("transformation", "path", "footpath", "crotchpath", "ik",
@@ -133,6 +136,7 @@ def test_port_trajectories_are_exactly_the_jax_packages():
 def _entry_points():
     from bez_isaacgym_tpu_torch.eval import task_eval, tracking
     from bez_isaacgym_tpu_torch.eval.kick_eval import eval_mppi, eval_policy
+    from bez_isaacgym_tpu_torch.play import LaunchModel
     from bez_isaacgym_tpu_torch.rl.players import (PpoPlayerContinuous,
                                                    PpoPlayerDiscrete,
                                                    SACPlayer)
@@ -142,13 +146,33 @@ def _entry_points():
             SACPlayer.__init__, eval_policy, eval_mppi, make_task,
             task_eval.eval_goalie, task_eval.eval_orient,
             task_eval.eval_walk, tracking.kick_skill_tracking,
-            tracking.walk_tracking,
+            tracking.walk_tracking, LaunchModel.__init__,
             *(cls.__init__ for cls in task_map.values()))
 
 
 def test_entry_points_default_to_cuda():
+    from bez_isaacgym_tpu_torch.utils.config import RunConfig
+
     for fn in _entry_points():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # train/play and Runner take the device from the run config.
+    assert RunConfig().device == "cuda"
+
+
+def test_no_gpu_raises_for_the_training_entry_points(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    from bez_isaacgym_tpu_torch import play, train
+    from bez_isaacgym_tpu_torch.rl.runner import Runner
+    from bez_isaacgym_tpu_torch.utils.config import RunConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(RunConfig(output_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["num_envs=1", f"output_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        play.main(["num_envs=1"])
+    assert not any(tmp_path.iterdir())
 
 
 def test_no_gpu_raises_instead_of_running_on_cpu():

@@ -232,10 +232,104 @@ def test_cli_runs_each_task_on_the_cpu():
     assert 0.15 - 0.1 <= res["mean_min_goal_dist_m"] <= 0.5 + 0.1
 
 
-def test_rnn_eval_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        task_eval.eval_walk(CKPT["walk"], num_envs=2, steps=1, rnn_units=128,
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+def test_rnn_eval_raises_naming_the_roadmap_item(tmp_path):
+    """The recurrent walk eval (the name is kept from when this path
+    raised, naming the roadmap item).  A port-written LSTM TrainState
+    (`utils.checkpoint.save`) runs through the port's and the JAX package's
+    `eval_walk` from the same scenario states as the MLP case above, every
+    auto-reset taking env 0's state in both: the actions of every env at
+    every step agree to 1e-4 (the observation bar of one control step, as
+    the closed-loop ticks above; a carry not zeroed on done would show),
+    and the results as in `test_eval_runs_and_returns_the_jax_keys`."""
+    from bez_isaacgym_tpu.eval import task_eval as jeval
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+    from bez_isaacgym_tpu_torch.rl.ppo_rnn import PPORNN
+    from bez_isaacgym_tpu_torch.tasks.base import tree_map
+    from bez_isaacgym_tpu_torch.utils import checkpoint as tckpt
+
+    units, seq_len = 8, 2
+    jmod = sys.modules[jreg.task_map["bez_walk"].__module__]
+    tmod = sys.modules[treg.task_map["bez_walk"].__module__]
+    jcfg = dataclasses.replace(jmod.walk_config(), substeps=1,
+                               use_pallas=False)
+    tcfg = dataclasses.replace(tmod.walk_config(), substeps=1)
+    jcls, tcls = jreg.task_map["bez_walk"], treg.task_map["bez_walk"]
+    ttask = tcls(tcfg, device="cpu")
+    ppo = PPORNN(ttask, S, PPOConfig(rnn_units=units, seq_len=seq_len,
+                                     horizon=seq_len))
+    ckpt = str(tmp_path / "walk_lstm.ckpt")
+    tckpt.save(ckpt, ppo.init(torch.Generator().manual_seed(5)))
+
+    jtask = jcls(jcfg)
+    keys = jax.random.split(jax.random.PRNGKey(0), S)
+    st = jax.tree.map(np.array, jax.jit(jax.vmap(jtask.reset_one))(keys))
+    st = _scenarios("walk", st, jtask, _fallen(tcls, tcfg))
+    table, table_keys = jax.tree.map(jnp.asarray, st), jnp.asarray(keys)
+
+    def jax_reset_one(self, rkey, dr_step=0):
+        i = jnp.argmax(jnp.all(rkey == table_keys, axis=-1))
+        return jax.tree.map(lambda a: a[i], table)
+
+    jacts, tacts = [], []
+    real_jstep, real_tstep = jcls.step_batch, tcls.step_batch
+
+    def jstep(self, states, actions):
+        jax.debug.callback(lambda a: jacts.append(np.asarray(a)), actions,
+                           ordered=True)
+        return real_jstep(self, states, actions)
+
+    with mock.patch.object(jmod, "walk_config", lambda: jcfg), \
+            mock.patch.object(jcls, "reset_one", jax_reset_one), \
+            mock.patch.object(jcls, "step_batch", jstep):
+        ref = jeval.eval_walk(ckpt, S, STEPS, 0, rnn_units=units,
+                              seq_len=seq_len)
+        jax.effects_barrier()
+
+    first = convert.env_state(st)
+    env0 = tree_map(lambda x: x[:1], first)
+
+    def port_reset(self, gen, n, dr_step=0):
+        return first if not tacts else tree_map(
+            lambda x: x.expand((n,) + x.shape[1:]).clone(), env0)
+
+    def tstep(self, states, actions, gen):
+        tacts.append(actions.numpy().copy())
+        return real_tstep(self, states, actions, gen)
+
+    with mock.patch.object(tmod, "walk_config", lambda: tcfg), \
+            mock.patch.object(tcls, "reset", port_reset), \
+            mock.patch.object(tcls, "step_batch", tstep):
+        res = task_eval.eval_walk(ckpt, num_envs=S, steps=STEPS,
+                                  rnn_units=units, seq_len=seq_len,
+                                  device="cpu")
+    assert len(tacts) == len(jacts) == STEPS
+    np.testing.assert_allclose(np.stack(tacts), np.stack(jacts), atol=1e-4)
+    # Episodes ended (and restarted with a zero carry) inside the run.
+    assert ref["episodes_finished"] >= 2, ref
+    assert set(res) == set(ref) and res["rnn_units"] == units
+    for k, v in ref.items():
+        exact = not isinstance(v, float) or k.endswith("_rate")
+        if exact:
+            assert res[k] == v, (k, res[k], v)
+        else:
+            assert res[k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+
+
+def test_rnn_cli_takes_the_seq_len(tmp_path):
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+    from bez_isaacgym_tpu_torch.rl.ppo_rnn import PPORNN
+    from bez_isaacgym_tpu_torch.utils import checkpoint as tckpt
+
+    task = treg.make_task("bez_walk", dataclasses.replace(
+        treg.default_configs["bez_walk"](), substeps=1), device="cpu")
+    ppo = PPORNN(task, 2, PPOConfig(rnn_units=4, seq_len=3, horizon=3))
+    ckpt = str(tmp_path / "walk_lstm.ckpt")
+    tckpt.save(ckpt, ppo.init(torch.Generator().manual_seed(0)))
+    res = task_eval.main(["--task", "walk", "--checkpoint", ckpt,
+                          "--num-envs", "2", "--steps", "2", "--rnn-units",
+                          "4", "--seq-len", "3", "--device", "cpu"])
+    assert res["rnn_units"] == 4 and np.isfinite(res["mean_min_goal_dist_m"])
+    with pytest.raises(ValueError, match="parameters"):
         task_eval.main(["--task", "walk", "--checkpoint", CKPT["walk"],
-                        "--rnn-units", "128", "--device", "cpu"])
+                        "--rnn-units", "4", "--num-envs", "2", "--device",
+                        "cpu"])
