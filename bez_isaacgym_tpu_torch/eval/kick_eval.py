@@ -1,8 +1,9 @@
 """Closed-loop kick evaluation: does the controller actually kick?
 
-Port of `bez_isaacgym_tpu/eval/kick_eval.py`.  Runs a trained policy, or
-MPPI around a policy prior or a keyframe skill, on S parallel kick envs for
-one episode horizon and reports ball progress toward the goal, success
+Port of `bez_isaacgym_tpu/eval/kick_eval.py`.  Runs a trained policy, MPPI
+around a policy prior or a keyframe skill, the hybrid MPPI + SQP solver, or
+the SQP polishing a policy rollout, on S parallel kick envs for one episode
+horizon and reports ball progress toward the goal, success
 rate (ball driven >= `success_dist` toward the goal), kick, scoring and
 fall rates, over each env's first episode.  The physics runs through the
 CUDA substep kernel on the card.  Per-env tallies stay on the device; the
@@ -13,6 +14,9 @@ Usage:
         --checkpoint runs/Bez_Kick/Bez_Kick_best.ckpt
     python -m bez_isaacgym_tpu_torch.eval.kick_eval --solver mppi \\
         --policy-prior runs/Bez_Kick/Bez_Kick_best.ckpt --substeps 4 ...
+    python -m bez_isaacgym_tpu_torch.eval.kick_eval --solver sqp-policy \\
+        --warm-reg 0.5
+    python -m bez_isaacgym_tpu_torch.eval.kick_eval --solver hybrid
 """
 
 from __future__ import annotations
@@ -26,10 +30,6 @@ import torch
 from bez_isaacgym_tpu_torch import resolve_device
 from bez_isaacgym_tpu_torch.tasks.base import EnvState, StepOutput, TaskConfig
 from bez_isaacgym_tpu_torch.tasks.kick import KickTask
-
-SQP_WAITS = ("the SQP stage (solvers/sqp.py, riccati.py, hybrid.py) is not "
-             "ported yet: ROADMAP section 1 item 15")
-
 
 class _Tally:
     """Per-env tallies of each env's FIRST episode, on the device (results
@@ -124,14 +124,15 @@ def eval_mppi(num_envs: int = 64, steps: int = 600, success_dist: float = 1.0,
     re-seeded with the skill window [t, t+H).
     policy_prior: PPO checkpoint; rollouts run closed-loop around the
     policy's deterministic action and MPPI samples residuals.
-    use_sqp (the hybrid MPPI + SQP solver) waits for the SQP slice.
+    use_sqp: polish the MPPI nominal with the SQP stage (HybridSolver, one
+    Gauss-Newton iteration per tick).
     use_kernel=False steps the plain engine on the card too.
     """
+    from bez_isaacgym_tpu_torch.solvers.hybrid import HybridSolver
     from bez_isaacgym_tpu_torch.solvers.mppi import (MPPIConfig, MPPISolver,
                                                      MPPIState)
+    from bez_isaacgym_tpu_torch.solvers.sqp import SQPConfig
 
-    if use_sqp:
-        raise NotImplementedError(SQP_WAITS)
     dev = resolve_device(device)
     task = KickTask(TaskConfig(substeps=substeps, use_kernel=use_kernel),
                     device=dev)
@@ -151,7 +152,14 @@ def eval_mppi(num_envs: int = 64, steps: int = 600, success_dist: float = 1.0,
         player = PpoPlayerContinuous(task, checkpoint_path=policy_prior,
                                      device=dev)
         prior_fn = lambda obs: player.get_action(obs, True)  # noqa: E731
-    solver = MPPISolver(task, mppi_cfg, prior_fn=prior_fn)
+    if use_sqp:
+        hybrid = HybridSolver(task, mppi_cfg,
+                              SQPConfig(horizon=horizon, iterations=1),
+                              prior_fn=prior_fn)
+        solver = hybrid.mppi
+    else:
+        hybrid = None
+        solver = MPPISolver(task, mppi_cfg, prior_fn=prior_fn)
 
     warm_plan = None
     if warm_skill:
@@ -165,12 +173,20 @@ def eval_mppi(num_envs: int = 64, steps: int = 600, success_dist: float = 1.0,
     noise_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     state = task.reset(gen, num_envs)
     mppi = solver.init_state(num_envs)
+    hstate = hybrid.init_state(num_envs) if hybrid is not None else None
     tally = _Tally(state)
     for t in range(steps):
         if warm_plan is not None:
-            mppi = MPPIState(nominal=warm_plan[t].expand(
-                (num_envs,) + warm_plan.shape[1:]).contiguous())
-        actions, mppi, _ = solver.solve(state, mppi, noise_gen)
+            nominal = warm_plan[t].expand(
+                (num_envs,) + warm_plan.shape[1:]).contiguous()
+            if hybrid is not None:
+                hstate = hybrid.warm_start(hstate, nominal)
+            else:
+                mppi = MPPIState(nominal=nominal)
+        if hybrid is not None:
+            actions, hstate, _ = hybrid.solve(state, hstate, noise_gen)
+        else:
+            actions, mppi, _ = solver.solve(state, mppi, noise_gen)
         out = task.step_batch(state, actions, gen)
         state = out.state
         if tally.update(out):
@@ -190,6 +206,78 @@ def eval_mppi(num_envs: int = 64, steps: int = 600, success_dist: float = 1.0,
                    "recovery_samples": recovery_samples,
                    "recovery_sigma": recovery_sigma,
                    "recovery_gate": recovery_gate},
+        **{k: rates[k] for k in ("mean_ball_progress_m", "success_rate",
+                                 "kicked_rate", "fall_rate")},
+    }
+
+
+def policy_rollout(task: KickTask, player, state: EnvState, horizon: int):
+    """The deterministic policy unrolled `horizon` steps from `state`
+    through the task's batched step (the kernel on the card): the absolute
+    (S, H, nu) action sequence the SQP polishes."""
+    zero = torch.zeros((state.goal.shape[0], task.num_actions),
+                       dtype=torch.float32, device=state.goal.device)
+    clip = task.cfg.clip_actions
+    s, us = state, []
+    for _ in range(horizon):
+        obs, s = task.observe(s, zero)
+        u = player.get_action(obs, True)
+        uc = u.clamp(-clip, clip)
+        uc = torch.cat([torch.zeros_like(uc[:, 0:2]), uc[:, 2:]], dim=-1)
+        targets = torch.minimum(
+            torch.maximum(uc + task.default_dof_pos, task.dof_lower),
+            task.dof_upper)
+        physics = task._step_physics_batch(s.dyn, s.physics, targets)
+        s = s._replace(physics=physics, progress=s.progress + 1)
+        us.append(u)
+    return torch.stack(us, dim=1)
+
+
+def eval_sqp_policy(num_envs: int = 16, steps: int = 200,
+                    success_dist: float = 1.0, seed: int = 0,
+                    horizon: int = 32, iterations: int = 1,
+                    substeps: int = 4, warm_reg: float = 0.0,
+                    balance_weight: float = 0.0,
+                    policy_prior: str = "runs/Bez_Kick/Bez_Kick_best.ckpt",
+                    use_kernel: bool = True, device="cuda"):
+    """Closed-loop SQP with a policy-rollout warm start.
+
+    Each tick the deterministic PPO policy is unrolled H steps from the
+    current state into an absolute action sequence (through the task's
+    batched step, the kernel on the card), the SQP/iLQR stage polishes it,
+    and the first polished action is executed.
+    use_kernel=False steps the plain engine on the card too.
+    """
+    from bez_isaacgym_tpu_torch.rl.players import PpoPlayerContinuous
+    from bez_isaacgym_tpu_torch.solvers.sqp import (SQPConfig, SQPSolver,
+                                                    SQPState)
+
+    dev = resolve_device(device)
+    task = KickTask(TaskConfig(substeps=substeps, use_kernel=use_kernel),
+                    device=dev)
+    player = PpoPlayerContinuous(task, checkpoint_path=policy_prior,
+                                 device=dev)
+    solver = SQPSolver(task, SQPConfig(horizon=horizon,
+                                       iterations=iterations,
+                                       warm_reg=warm_reg,
+                                       balance_weight=balance_weight))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = task.reset(gen, num_envs)
+    tally = _Tally(state)
+    for _ in range(steps):
+        nominal = policy_rollout(task, player, state, horizon)
+        actions, _, _ = solver.solve(state, SQPState(nominal=nominal))
+        out = task.step_batch(state, actions, gen)
+        state = out.state
+        if tally.update(out):
+            break
+    rates = tally.rates(success_dist)
+    return {
+        "num_envs": num_envs,
+        "config": {"solver": "sqp+policy_rollout", "horizon": horizon,
+                   "iterations": iterations, "substeps": substeps,
+                   "warm_reg": warm_reg, "balance_weight": balance_weight,
+                   "policy_prior": policy_prior},
         **{k: rates[k] for k in ("mean_ball_progress_m", "success_rate",
                                  "kicked_rate", "fall_rate")},
     }
@@ -228,15 +316,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--recovery-gate", type=float, default=0.0)
     ap.add_argument("--warm-reg", type=float, default=0.0,
                     help="sqp-policy: quadratic tether to the policy-"
-                         "rollout warm start (not ported yet)")
+                         "rollout warm start (trust region)")
     ap.add_argument("--substeps", type=int, default=0,
                     help="env/rollout physics substeps (default: 4 for "
                          "sqp-policy, else 2); use 4 for like-for-like "
                          "comparison with the policy eval, whose policy "
                          "was trained at 4")
     ap.add_argument("--iterations", type=int, default=1,
-                    help="sqp-policy: Gauss-Newton iterations per tick "
-                         "(not ported yet)")
+                    help="sqp-policy: Gauss-Newton iterations per tick")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the resets (and seed+1 the MPPI noise)")
     ap.add_argument("--plain-engine", action="store_true",
@@ -246,15 +333,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain engine")
     args = ap.parse_args(argv)
-    if args.solver in ("hybrid", "sqp-policy"):
-        raise NotImplementedError(f"--solver {args.solver}: {SQP_WAITS}")
     if not args.substeps:
-        args.substeps = 2
-    if args.solver == "mppi":
+        args.substeps = 4 if args.solver == "sqp-policy" else 2
+    if args.solver == "sqp-policy":
+        return eval_sqp_policy(num_envs=args.num_envs, steps=args.steps,
+                               horizon=args.horizon, substeps=args.substeps,
+                               warm_reg=args.warm_reg,
+                               iterations=args.iterations,
+                               balance_weight=args.balance_weight,
+                               policy_prior=args.policy_prior or
+                               "runs/Bez_Kick/Bez_Kick_best.ckpt",
+                               seed=args.seed,
+                               use_kernel=not args.plain_engine,
+                               device=args.device)
+    if args.solver in ("mppi", "hybrid"):
         return eval_mppi(num_envs=args.num_envs, steps=args.steps,
                          sigma=args.sigma, temperature=args.temperature,
                          num_samples=args.num_samples, horizon=args.horizon,
                          warm_skill=args.warm_skill,
+                         use_sqp=args.solver == "hybrid",
                          policy_prior=args.policy_prior,
                          balance_weight=args.balance_weight,
                          terminal_balance_weight=args.terminal_balance_weight,

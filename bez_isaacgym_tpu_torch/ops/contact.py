@@ -8,7 +8,7 @@ diagnostics the reference reads back from PhysX (kick_env.py:146,187-196):
 per-foot-sensor normal forces and per-body net contact forces.
 
 Tensors carry any leading batch dimensions; `mu` has the batch shape (or is
-a scalar).  `segment_sum` over bodies becomes `index_add_`.
+a scalar).  `segment_sum` over bodies becomes a one-hot product.
 """
 
 from __future__ import annotations
@@ -52,10 +52,15 @@ def _friction_dir(vt: Tensor, eps: float) -> Tensor:
 
 
 def _segment_sum(x: Tensor, seg: Tensor, n: int) -> Tensor:
-    """Sum x (..., k, d) into n segments along dim -2 by seg (k,)."""
-    out = torch.zeros(x.shape[:-2] + (n,) + x.shape[-1:], dtype=x.dtype,
-                      device=x.device)
-    return out.index_add_(out.dim() - 2, seg, x)
+    """Sum x (..., k, d) into n segments along dim -2 by seg (k,).
+
+    A product with the (n, k) one-hot matrix of seg: it sums in a fixed
+    order on every device (CUDA's `index_add` adds atomically, in no fixed
+    order, so two runs of the plain engine on the card could differ in the
+    last bit), and it holds under `torch.func.vmap` over tangents, where an
+    in-place add of a batched x into unbatched zeros raises."""
+    onehot = (seg[None, :] == torch.arange(n, device=x.device)[:, None])
+    return torch.einsum("nk,...kd->...nd", onehot.to(x.dtype), x)
 
 
 def robot_plane_contacts(model: RobotModel, frames: BodyFrames, vel: BodyVel,

@@ -117,7 +117,7 @@ def _contact_damping_W(model: RobotModel, cfg: SceneConfig, frames, vel,
 
     W_b = sum_{c in b} M_c^T D_c M_c with M_c = [I3, -skew(r_c)] and
     D_c = diag(d_t, d_t, d_n), accumulated via 16 scalar moments per point
-    (one index_add_) and folded into the spatial inertia G_b.
+    (one segment sum) and folded into the spatial inertia G_b.
     """
     like = frames.pos
     cp = kin.model_const(model, "cpoint_pos", like)

@@ -20,9 +20,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from bez_isaacgym_tpu_torch import convert, resolve_device
-from bez_isaacgym_tpu_torch.rl.networks import (ACTION_LIMIT, ActorCritic,
-                                                RunningMeanStd,
+from bez_isaacgym_tpu_torch.rl.networks import (ACTION_LIMIT, RunningMeanStd,
                                                 init_flax_like)
+from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig, build_net
 from bez_isaacgym_tpu_torch.tasks.base import BezTask
 from bez_isaacgym_tpu_torch.utils.checkpoint import read_msgpack
 
@@ -55,12 +55,20 @@ def _generator(gen, device) -> torch.Generator:
 
 
 class PpoPlayerContinuous:
+    """The network `cfg` trains (units, the central-value option), with
+    observations normalized when `cfg.normalize_input`.  Recurrent
+    checkpoints (`cfg.rnn_units > 0`) are played by `rl.runner.Runner`."""
 
-    def __init__(self, task: BezTask, checkpoint_path: str = "",
-                 device="cuda", seed: int = 0):
+    def __init__(self, task: BezTask, cfg: PPOConfig = PPOConfig(),
+                 checkpoint_path: str = "", device="cuda", seed: int = 0):
+        if cfg.rnn_units > 0:
+            raise ValueError("PpoPlayerContinuous plays feed-forward "
+                             "policies; play an LSTM checkpoint with "
+                             "rl.runner.Runner (test=True)")
         self.task = task
+        self.cfg = cfg
         self.device = resolve_device(device)
-        self.net = ActorCritic(task.num_obs, task.num_actions)
+        self.net = build_net(task.num_obs, task.num_actions, cfg)
         init_flax_like(self.net, torch.Generator().manual_seed(seed))
         self.net.to(self.device)
         self.obs_rms = RunningMeanStd.create((task.num_obs,), self.device)
@@ -72,7 +80,7 @@ class PpoPlayerContinuous:
         """Load model weights and running normalization from a PPO
         TrainState checkpoint; any other layout raises."""
         state = _read_layout(path, TRAIN_STATE_FIELDS)
-        self.net.load_state_dict(convert.actor_critic(state["params"]))
+        self.net.load_state_dict(convert.network(state["params"]))
         self.obs_rms = convert.running_mean_std(state["obs_rms"], self.device)
         self.value_rms = convert.running_mean_std(state["value_rms"],
                                                   self.device)
@@ -83,7 +91,8 @@ class PpoPlayerContinuous:
         """clip(mu, -1, 1), or clip(mu + exp(log_std) z, -1, 1) when
         sampling (rl/ppo.py:157-164)."""
         obs = torch.as_tensor(obs, dtype=F32, device=self.device)
-        mu, log_std, _ = self.net(self.obs_rms.normalize(obs))
+        x = self.obs_rms.normalize(obs) if self.cfg.normalize_input else obs
+        mu, log_std, _ = self.net(x)
         a = mu
         if not deterministic:
             z = torch.randn(mu.shape, generator=_generator(gen, self.device),

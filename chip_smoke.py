@@ -91,7 +91,29 @@ Phase 11 training (PPO and recurrent PPO through rl/runner.py, the plain
          envs, 600 steps) against the JAX package's f32 play of it, then 2
          recurrent training iterations at 4096 envs from it.  Launches must
          be substeps x horizon per iteration exactly.
-In phases 6, 7, 9, 10 and 11 the env steps are counted at
+Phase 12 the SQP stage and the hybrid solver: (a) the struct linearization
+         (plain engine under torch.func) on the card against the CPU and
+         against jacfwd, in contact and airborne, substeps 1 and 4
+         (tests/test_solvers.py's bars); the sequential Riccati pass
+         against the parallel one at S=64, T=32, n=58, m=18; one SQP solve
+         (S=16, H=32, substeps 2) with kernel rollouts against plain ones,
+         the same accepted step and cost wherever the plain solve itself is
+         stable under a 1e-6 move of its start state; the kernel against
+         its plain version at the SQP's batches B=256 (substeps 4), 64 and
+         16 (substeps 2), ms per launch and bound_ms; then, the plain
+         engine's substep forbidden: (b) bench.py::run_sqp_bench's
+         configuration, 5 solves with 1 and with 2 iterations
+         (relinearize_every 2), the median and the split into
+         linearization, cost gradients, backward pass and line search (CUDA
+         events), launches = substeps x H x (1 + iterations) per solve, the
+         idle share of one profiled solve, Riccati ms at S=16 and 64;
+         (c) eval_sqp_policy at runs/Bez_Kick/sqp_kick_eval.json's config
+         (64 envs, 600-tick cap, substeps 4, H=32, warm_reg 0.5), bars about
+         3 binomial standard deviations from the artifact, 388 launches per
+         tick, peak memory; (d) eval_mppi(use_sqp=True) at phase 3's MPPI
+         config, S=16, 20 ticks, every SQP cost at most its MPPI nominal's,
+         194 launches per tick.
+In phases 6, 7, 9, 10, 11 and 12 the env steps are counted at
 BezTask.step_batch, apart from the launch counter, and the launches must be
 exactly the substeps (times H+1 for MPPI) of every step; a tracking
 drive's steps must be its plan's length.
@@ -542,6 +564,7 @@ def main() -> int:
     launches_by_path = {"mppi_tick_substeps2": launches}
     real_step_batch = BezTask.step_batch
     ms_per_tick = {}        # by eval label
+    ticks_by_path = {}      # by eval label
     misses = []             # every eval runs; a missed bar fails at the end
 
     def leaves(tree):
@@ -600,6 +623,7 @@ def main() -> int:
         check_bars(phase, label, res, bars)
         launches_by_path[label] = n
         ms_per_tick[label] = ms_tick
+        ticks_by_path[label] = ticks
         return res
 
     def check_bars(phase, label, res, bars):
@@ -741,7 +765,7 @@ def main() -> int:
         acts_ = scale * torch.randn((B_, 18), generator=g, device=dev)
         return env_, task._pre_physics(env_, acts_, g)[1]
 
-    def time_launch(label, tables_, x_, p_):
+    def time_launch(label, tables_, x_, p_, phase="phase8"):
         B_ = x_.shape[1]
         if B_ <= 64:
             ms_, how = graph_ms(torch, ss, tables_, x_, p_), "CUDA graph"
@@ -751,7 +775,7 @@ def main() -> int:
             how = "launch loop"
         b = ss.bound(tables_, x_)
         p8[label] = {"ms": ms_, "bound_ms": b.ms}
-        log(f"phase8 timing {label}: kernel_ms={ms_:.5f} ({how}) "
+        log(f"{phase} timing {label}: kernel_ms={ms_:.5f} ({how}) "
             f"bound_ms={b.ms:.4g} ({b.by}; bytes={b.bytes} flops={b.flops}; "
             f"{100 * b.ms / ms_:.2f}% of bound) has_ball="
             f"{tables_.cfg.has_ball} | {card_line()}")
@@ -1197,7 +1221,8 @@ def main() -> int:
                         ("mean_episode_return", "<=", 24.769)])
             saved = next(Path(ft["runner"].run_dir).glob(
                 "Bez_Kick_20_rew_*.ckpt"))
-            player = PpoPlayerContinuous(ft["runner"].task, str(saved))
+            player = PpoPlayerContinuous(ft["runner"].task,
+                                         checkpoint_path=str(saved))
             rms = ts.obs_rms
             obs = rms.mean + 2.0 * torch.sqrt(rms.var) * torch.randn(
                 (64, 54), generator=torch.Generator(device=dev).manual_seed(0),
@@ -1266,6 +1291,378 @@ def main() -> int:
                       ("ppo_rnn_2_iterations", rnn)):
         launches_by_path[key] = run_["launches"]
     log(f"phase11 card: {card_line()}")
+
+    # ---------------- phase 12: the SQP stage and the hybrid solver ---------
+    from bez_isaacgym_tpu_torch.solvers import sqp as sqp_mod
+    from bez_isaacgym_tpu_torch.solvers.hybrid import HybridSolver
+    from bez_isaacgym_tpu_torch.solvers.riccati import (parallel_backward,
+                                                        sequential_backward)
+    from bez_isaacgym_tpu_torch.solvers.sqp import (SQPConfig, SQPSolver,
+                                                    SQPState)
+
+    t12 = time.time()
+
+    def close(a, b, atol, rtol, what):
+        err = float((a - b).abs().max())
+        rel = float(((a - b).abs() - atol - rtol * b.abs()).max())
+        assert torch.isfinite(a).all() and rel <= 0.0, (what, err)
+        return err
+
+    # 12a: the struct linearization on the card against the CPU and against
+    # jacfwd on the card, from a kick reset state (in contact) and
+    # tests/test_solvers.py's airborne state; test_solvers.py's bars.
+    u_lin = 0.05 * torch.sin(torch.arange(18.0))
+    for sub in (1, 4):
+        t_c = KickTask(TaskConfig(substeps=sub), device="cuda")
+        t_p = KickTask(TaskConfig(substeps=sub), device="cpu")
+        e_c = t_c.reset(torch.Generator(device=dev).manual_seed(120), 1)
+        air = e_c.physics._replace(
+            base_pos=e_c.physics.base_pos * torch.tensor([1.0, 1.0, 0.0],
+                                                         device=dev)
+            + torch.tensor([0.0, 0.0, 0.6], device=dev),
+            q=t_c.default_dof_pos[None].clone(),
+            qd=torch.full((1, 18), 0.4, device=dev),
+            ball_pos=torch.tensor([[5.0, 0.0, 0.5]], device=dev))
+        rows = tree_map(lambda v: torch.cat([v, v]), e_c)._replace(
+            physics=engine.PhysicsState(*[torch.cat([a, b]) for a, b in
+                                          zip(e_c.physics, air)]))
+        rows_p = tree_map(lambda v: v.cpu(), rows)
+        x_c = sqp_mod.flatten_physics(rows.physics)
+        u2 = u_lin.expand(2, 18)
+        A_s, B_s = SQPSolver(t_c, SQPConfig()).linearize_dynamics(
+            rows, x_c, u2.to(dev))
+        A_p, B_p = SQPSolver(t_p, SQPConfig()).linearize_dynamics(
+            rows_p, x_c.cpu(), u2)
+        A_j, B_j = SQPSolver(t_c, SQPConfig(linearize="jacfwd")) \
+            .linearize_dynamics(rows, x_c, u2.to(dev))
+        e_cpu = max(close(A_s.cpu(), A_p, 1e-4, 1e-3, "A card vs cpu"),
+                    close(B_s.cpu(), B_p, 1e-4, 1e-3, "B card vs cpu"))
+        e_jac = max(close(A_s, A_j, 1e-4, 1e-3, "A struct vs jacfwd"),
+                    close(B_s, B_j, 1e-4, 1e-3, "B struct vs jacfwd"))
+        log(f"phase12 struct linearization substeps={sub} (in contact, "
+            f"airborne): max|card-cpu|={e_cpu:.3e} max|struct-jacfwd| on "
+            f"the card={e_jac:.3e} (largest entry "
+            f"{float(A_s.abs().max()):.3g};"
+            f" bars atol 1e-4 rtol 1e-3)")
+
+    # Riccati: the sequential pass against the parallel one at S=64, T=32,
+    # n=58, m=18 on a random contractive LQ problem (tests/test_riccati.py's
+    # construction and bars).
+    def lq_problem(S_, seed):
+        rng = np.random.default_rng(seed)
+        q_, r_ = np.linalg.qr(rng.normal(size=(S_, 32, 58, 58)))
+        A_ = 0.9 * q_ * np.sign(np.diagonal(r_, axis1=-2,
+                                            axis2=-1))[..., None, :]
+        args = (A_, rng.normal(size=(S_, 32, 58, 18)) / np.sqrt(58),
+                rng.normal(size=(S_, 32, 58)), rng.normal(size=(S_, 32, 18)))
+        return [torch.tensor(a, dtype=torch.float32, device=dev)
+                for a in args]
+
+    ric_ms = {}
+    for S_ in (16, 64):
+        lq = lq_problem(S_, S_)
+        g_s = sequential_backward(*lq, 1e-2)
+        g_p = parallel_backward(*lq, 1e-2)
+        if S_ == 64:
+            err_K = close(g_p.K, g_s.K, 2e-4, 2e-3, "riccati K")
+            err_k = close(g_p.k, g_s.k, 2e-4, 2e-3, "riccati k")
+        for name, fn in (("sequential", sequential_backward),
+                         ("parallel", parallel_backward)):
+            ric_ms[f"{name}_s{S_}"] = cuda_ms(torch, lambda: fn(*lq, 1e-2),
+                                              reps=5, warmup=1)
+    log(f"phase12 riccati S=64 T=32 n=58 m=18: max|parallel-sequential| "
+        f"K={err_K:.3e} k={err_k:.3e} (bars atol 2e-4 rtol 2e-3); ms "
+        + " ".join(f"{k}={v:.2f}" for k, v in ric_ms.items())
+        + f" | {card_line()}")
+
+    # One SQP solve at run_sqp_bench's configuration (S=16, H=32, substeps
+    # 2, a zero nominal, reset states) with kernel rollouts, against the
+    # same solve with the plain engine on the card.  Once the ball rests on
+    # the ground the Jacobians reach 1e10 and more (the rolling-friction
+    # slope), and the line search's feedback gains multiply any 1e-7
+    # difference between two f32 rollouts (the kernel's and the plain
+    # engine's summation orders differ) until the accepted step can flip.
+    # So the plain solve is also run from its start state moved by 1e-6
+    # relative in q and qd, twice: a solve is stable where all three plain
+    # solves accept the same step with costs within 1e-4 relative.  On every
+    # stable solve the kernel's must accept the same step with its cost
+    # within 1e-4 relative.
+    S_B, H_B = 16, 32
+    kick2 = KickTask(TaskConfig(substeps=2), device="cuda")
+    kick2_plain = KickTask(TaskConfig(substeps=2, use_kernel=False),
+                           device="cuda")
+    env_b = kick2.reset(torch.Generator(device=dev).manual_seed(42), S_B)
+    zero_b = SQPState(nominal=torch.zeros((S_B, H_B, 18), device=dev))
+
+    def perturbed(seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return env_b._replace(physics=env_b.physics._replace(**{
+            f: getattr(env_b.physics, f) * (1.0 + 1e-6 * torch.randn(
+                getattr(env_b.physics, f).shape, generator=g_, device=dev))
+            for f in ("q", "qd")}))
+
+    outs = [SQPSolver(t_, SQPConfig(horizon=H_B, iterations=1))
+            .solve(e_, zero_b)[2] for t_, e_ in (
+                (kick2, env_b), (kick2_plain, env_b),
+                (kick2_plain, perturbed(43)), (kick2_plain, perturbed(44)),
+                (kick2, env_b))]
+    # The solve is repeatable on the card: the same inputs, the same bits.
+    assert torch.equal(outs[4]["cost"], outs[0]["cost"]) and torch.equal(
+        outs[4]["accepted"], outs[0]["accepted"]), (outs[0], outs[4])
+    acc = [o["accepted"] for o in outs]
+    cost = [o["cost"] for o in outs]
+
+    def rel(a, b):
+        return (a - b).abs() / b.abs().clamp_min(1e-6)
+
+    stable = (acc[1] == acc[2]) & (acc[1] == acc[3]) \
+        & (rel(cost[2], cost[1]) <= 1e-4) & (rel(cost[3], cost[1]) <= 1e-4)
+    same = (acc[0] == acc[1]) & (rel(cost[0], cost[1]) <= 1e-4)
+    assert bool(same[stable].all()), (acc, cost, stable)
+    n_acc = int((stable & (acc[1] >= 0)).sum())
+    spread = torch.maximum(rel(cost[2], cost[1]), rel(cost[3], cost[1]))
+    if (~stable).any():
+        log(f"phase12 SQP solve, the {int((~stable).sum())} unstable solves "
+            f"(the plain solve's own spread under the 1e-6 move up to "
+            f"{float(spread[~stable].max()):.3e} relative in cost): kernel "
+            f"vs plain up to {float(rel(cost[0], cost[1])[~stable].max()):.3e}"
+            f", the same step in {int((acc[0] == acc[1])[~stable].sum())}")
+    log(f"phase12 SQP solve S={S_B} H={H_B} substeps 2, kernel vs plain "
+        f"rollouts on the card: accepted steps kernel {acc[0].tolist()}, "
+        f"plain {acc[1].tolist()} (-1 = none improved); stable solves "
+        f"{int(stable.sum())} of {S_B} ({n_acc} of them with an accepted "
+        f"step), all with the same step and max relative cost difference "
+        f"{float(rel(cost[0], cost[1])[stable].max()):.3e} (bar 1e-4); the "
+        f"kernel's step is the plain one in {int(same.sum())} of {S_B}; "
+        f"a second kernel solve bit-equal to the first")
+    # The kernel at the SQP's new batches against its plain version: the
+    # line search's B = 4S (S=64 at substeps 4, S=16 at substeps 2) and the
+    # bench's nominal rollout, B=16 at substeps 2.
+    p12 = {}
+    for label, task_, B_ in (("sqp_linesearch_b256_substeps4",
+                              KickTask(TaskConfig(substeps=4),
+                                       device="cuda"), 256),
+                             ("sqp_linesearch_b64_substeps2", kick2, 64),
+                             ("sqp_nominal_b16_substeps2", kick2, 16)):
+        env_, tg_ = task_inputs(task_, B_, 120 + B_, 0.2)
+        tables_ = task_._step_physics_batch.tables
+        x_ = ss.pack_state(env_.physics)
+        p_ = ss.pack_params(task_.model, env_.dyn, tg_)
+        _, err_, _ = one_substep(tables_, x_, p_)
+        assert err_ < 1e-3, (label, err_)
+        max_abs_err = max(max_abs_err, err_)
+        time_launch(label, tables_, x_, p_, phase="phase12")
+        p12[label] = p8.pop(label)
+        log(f"phase12 {label}: max|kernel-plain| on the state rows = "
+            f"{err_:.3e}")
+
+    def profiled(fn):
+        """fn() once under torch.profiler: (wall ms, device ms, substep
+        kernel ms, kernel launches)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            t_ = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall_ = 1e3 * (time.time() - t_)
+        ev_ = [e for e in prof_.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (wall_, sum(dev_us(e) for e in ev_) / 1e3,
+                sum(dev_us(e) for e in ev_
+                    if "bez_substep_kernel" in e.key) / 1e3,
+                sum(e.count for e in ev_), ev_)
+
+    engine.substep = plain_forbidden
+    try:
+        # 12b: the SQP bench's timing, CUDA events around each of 5 solves
+        # and around each stage inside them.
+        stage_events = {}
+
+        def timed(obj, name, key):
+            fn = getattr(obj, name)
+
+            def wrapped(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                stage_events.setdefault(key, []).append((e0, e1))
+                return out
+            return wrapped
+
+        bench = {}
+        for iters in (1, 2):
+            solver_b = SQPSolver(kick2, SQPConfig(
+                horizon=H_B, iterations=iters, relinearize_every=iters))
+            solver_b.solve(env_b, zero_b)                      # warm-up
+            solver_b._lin_dyn = timed(solver_b, "_lin_dyn", "linearize")
+            solver_b._cost_grads = timed(solver_b, "_cost_grads",
+                                         "cost_grads")
+            solver_b._bf_pass = timed(solver_b, "_bf_pass", "bf_pass")
+            real_seq = sqp_mod.sequential_backward
+            sqp_mod.sequential_backward = timed(sqp_mod,
+                                                "sequential_backward",
+                                                "backward")
+            stage_events.clear()
+            solve_ms = []
+            try:
+                torch.cuda.synchronize()
+                ss.substep.launches = 0
+                for _ in range(5):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    a_b, _, info_b = solver_b.solve(env_b, zero_b)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    solve_ms.append(e0.elapsed_time(e1))
+                n_b = ss.substep.launches
+            finally:
+                sqp_mod.sequential_backward = real_seq
+            # One nominal rollout, then one line search per iteration: H
+            # control steps of 2 substeps each.
+            assert n_b == 5 * 2 * H_B * (1 + iters), (iters, n_b)
+            assert torch.isfinite(a_b).all()
+            st_ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 5
+                     for k, v in stage_events.items()}
+            st_ms["line_search_forward"] = st_ms.pop("bf_pass") \
+                - st_ms["backward"]
+            med = sorted(solve_ms)[2]
+            bench[iters] = {"ms_per_batch": med, "ms_per_solve": med / S_B,
+                            "launches_per_solve": n_b // 5, **st_ms}
+            launches_by_path[f"sqp_bench_iters{iters}"] = n_b
+            log(f"phase12 SQP bench S={S_B} H={H_B} substeps 2 iterations="
+                f"{iters} relinearize_every={iters}: median of 5 ms_per_batch"
+                f"={med:.2f} ms_per_solve={med / S_B:.3f} (all "
+                + " ".join(f"{v:.1f}" for v in solve_ms) + "); per batch "
+                + " ".join(f"{k}_ms={v:.2f}" for k, v in st_ms.items())
+                + f"; launches per batch {n_b // 5} | {card_line()}")
+        solver_b = SQPSolver(kick2, SQPConfig(horizon=H_B, iterations=1))
+        t_p12, dev12, sub12, n12, ev12 = profiled(
+            lambda: solver_b.solve(env_b, zero_b))
+        log(f"phase12 profile of one SQP solve S={S_B}: wall_ms={t_p12:.2f} "
+            f"device_ms={dev12:.2f} substep_kernel_ms={sub12:.2f} kernels="
+            f"{n12} idle_share_profiled={1 - dev12 / t_p12:.3f} "
+            f"idle_share_vs_median="
+            f"{1 - dev12 / bench[1]['ms_per_batch']:.3f}")
+        for e in sorted(ev12, key=dev_us, reverse=True)[:6]:
+            log(f"phase12   {dev_us(e) / 1e3:8.3f} ms {e.count:6d}x  "
+                f"{e.key[:90]}")
+
+        # 12c: serving sqp-policy at runs/Bez_Kick/sqp_kick_eval.json's
+        # config.  One tick first, and the projection.
+        sqp_kw = dict(num_envs=64, horizon=32, iterations=1, substeps=4,
+                      warm_reg=0.5, policy_prior=str(kick_ckpt))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        kick_eval.eval_sqp_policy(steps=1, **sqp_kw)
+        torch.cuda.synchronize()
+        one_tick = time.time() - t0
+        n_pol = ticks_by_path["policy Bez_Kick_best"]
+        log(f"phase12 sqp-policy one tick (set-up included) s={one_tick:.2f}"
+            f"; projection for phase 6's {n_pol} policy ticks: "
+            f"{one_tick * n_pol:.0f}"
+            f" s")
+        # Bars about 3 binomial standard deviations (n=64) from the
+        # artifact's 0.953 / 1.0 / 0.156.
+        res_sqp = run_eval("phase12", "sqp_policy_eval",
+                           lambda: kick_eval.eval_sqp_policy(steps=600,
+                                                             **sqp_kw),
+                           4 * (3 * 32 + 1),
+                           [("success_rate", ">=", 0.87),
+                            ("kicked_rate", ">=", 0.95),
+                            ("fall_rate", "<=", 0.29)], max_ticks=600)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"phase12 sqp-policy peak memory {peak_gb:.2f} GB "
+            f"(torch.cuda.max_memory_allocated) | {card_line()}")
+        # Where an sqp-policy tick's time goes: one tick (policy rollout,
+        # solve, env step) at the eval's config, profiled.
+        task4s = KickTask(TaskConfig(substeps=4), device="cuda")
+        player4s = PpoPlayerContinuous(task4s, checkpoint_path=str(kick_ckpt))
+        solver4s = SQPSolver(task4s, SQPConfig(horizon=32, iterations=1,
+                                               warm_reg=0.5))
+        g4s = torch.Generator(device=dev).manual_seed(0)
+        env4s = task4s.reset(g4s, 64)
+
+        def sqp_tick():
+            nom = kick_eval.policy_rollout(task4s, player4s, env4s, 32)
+            a_, _, _ = solver4s.solve(env4s, SQPState(nominal=nom))
+            task4s.step_batch(env4s, a_, g4s)
+
+        sqp_tick()
+        w_, d_, k_, n_, _ = profiled(sqp_tick)
+        tick_c = ms_per_tick["sqp_policy_eval"]
+        log(f"phase12 profile of one sqp-policy tick S=64: wall_ms={w_:.2f}"
+            f" device_ms={d_:.2f} substep_kernel_ms={k_:.2f} kernels={n_} "
+            f"idle_share_profiled={1 - d_ / w_:.3f} idle_share_vs_eval_tick="
+            f"{1 - d_ / tick_c:.3f} (eval ms_per_tick={tick_c:.2f})")
+
+        # 12d: the hybrid, eval_mppi(use_sqp=True) at phase 3's MPPI config
+        # (K=32, H=32, sigma 0.15, substeps 2), S=16, 20 chained ticks;
+        # every SQP solve's cost at most its MPPI nominal's.
+        costs12 = []
+        real_sqp_solve = SQPSolver.solve
+
+        def checked_solve(self, env, st, gen=None):
+            base = []
+            real_roll = SQPSolver._rollout
+
+            def roll(e, U):
+                out = real_roll(self, e, U)
+                base.append(out[1])
+                return out
+
+            self._rollout = roll
+            try:
+                out = real_sqp_solve(self, env, st, gen)
+            finally:
+                del self._rollout
+            costs12.append((base[0], out[2]["cost"]))
+            assert torch.isfinite(out[0]).all()
+            return out
+
+        SQPSolver.solve = checked_solve
+        try:
+            res_h = run_eval("phase12", "hybrid_20_ticks",
+                             lambda: kick_eval.eval_mppi(
+                                 num_envs=16, steps=20, horizon=32,
+                                 num_samples=32, sigma=0.15,
+                                 temperature=0.05, substeps=2,
+                                 use_sqp=True),
+                             2 * (32 + 2 * 32 + 1), [], max_ticks=20,
+                             num_envs=16)
+        finally:
+            SQPSolver.solve = real_sqp_solve
+        hyb = HybridSolver(kick2, MPPIConfig(horizon=32, num_samples=32,
+                                             sigma=0.15, temperature=0.05),
+                           SQPConfig(horizon=32, iterations=1))
+        g_h = torch.Generator(device=dev).manual_seed(0)
+        env_h = kick2.reset(g_h, 16)
+        hst = hyb.init_state(16)
+
+        def hybrid_tick():
+            a_, _, _ = hyb.solve(env_h, hst, g_h)
+            kick2.step_batch(env_h, a_, g_h)
+
+        hybrid_tick()
+        w_, d_, k_, n_, _ = profiled(hybrid_tick)
+        tick_h = ms_per_tick["hybrid_20_ticks"]
+        log(f"phase12 profile of one hybrid tick S=16: wall_ms={w_:.2f} "
+            f"device_ms={d_:.2f} substep_kernel_ms={k_:.2f} kernels={n_} "
+            f"idle_share_profiled={1 - d_ / w_:.3f} idle_share_vs_eval_tick="
+            f"{1 - d_ / tick_h:.3f} (eval ms_per_tick={tick_h:.2f})")
+        worse = sum(int((c > b + 1e-6).sum()) for b, c in costs12)
+        better = sum(int((c < b).sum()) for b, c in costs12)
+        assert costs12 and worse == 0, worse
+        log(f"phase12 hybrid: {len(costs12)} SQP solves, polished cost below "
+            f"the MPPI nominal's in {better} of {16 * len(costs12)} solves, "
+            f"above in {worse}; ms_per_tick="
+            f"{ms_per_tick['hybrid_20_ticks']:.2f} | {card_line()}")
+    finally:
+        engine.substep = real_substep
+    log(f"phase12 s={time.time() - t12:.1f}")
     assert not misses, misses
 
     kernels = [{
@@ -1288,6 +1685,8 @@ def main() -> int:
                                                              "bound_ms")},
         **{f"{m}_b4096_substeps4_{k}": v[m] for k, v in p11.items()
            for m in ("ms", "bound_ms")},
+        **{f"{m}_{k}": v[m] for k, v in p12.items() for m in ("ms",
+                                                             "bound_ms")},
         "launches_by_path": launches_by_path,
         "envs_per_block": lc.envs_per_block,
     }]

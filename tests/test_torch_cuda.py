@@ -267,3 +267,52 @@ def test_ppo_iteration_launches_the_kernel_for_every_substep(cuda, tmp_path):
             assert ss.substep.launches - before == 2 * 4 * 2
     finally:
         engine.substep = real
+
+
+@pytest.mark.parametrize("substeps", [1, 4])
+def test_struct_linearization_on_the_card_matches_the_cpu(cuda, substeps):
+    """The SQP's struct linearization (plain engine under torch.func) on
+    the card against the same call on the CPU, from kick reset states:
+    test_solvers.py's bars, atol 1e-4, rtol 1e-3."""
+    from bez_isaacgym_tpu_torch.solvers.sqp import (SQPConfig, SQPSolver,
+                                                    flatten_physics)
+    from bez_isaacgym_tpu_torch.tasks.base import tree_map
+
+    tc = KickTask(TaskConfig(substeps=substeps), device=cuda)
+    tp = KickTask(TaskConfig(substeps=substeps), device="cpu")
+    ec = tc.reset(torch.Generator(device=cuda).manual_seed(0), 2)
+    ep = tree_map(lambda v: v.cpu(), ec)
+    u = 0.05 * torch.sin(torch.arange(18.0)).expand(2, 18)
+    Ac, Bc = SQPSolver(tc, SQPConfig()).linearize_dynamics(
+        ec, flatten_physics(ec.physics), u.to(cuda))
+    Ap, Bp = SQPSolver(tp, SQPConfig()).linearize_dynamics(
+        ep, flatten_physics(ep.physics), u)
+    assert torch.isfinite(Ac).all() and torch.isfinite(Bc).all()
+    torch.testing.assert_close(Ac.cpu(), Ap, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(Bc.cpu(), Bp, atol=1e-4, rtol=1e-3)
+
+
+def test_sqp_solve_launches_the_kernel_for_every_rollout_substep(cuda):
+    """One iteration: the nominal rollout and the batched line search, H
+    control steps each, every substep one kernel launch: substeps x 2H."""
+    from bez_isaacgym_tpu_torch.solvers.sqp import SQPConfig, SQPSolver
+
+    task = KickTask(TaskConfig(substeps=2), device=cuda)
+    assert hasattr(task._step_physics_batch, "tables")
+    env = task.reset(torch.Generator(device=cuda).manual_seed(0), 4)
+    H = 4
+    solver = SQPSolver(task, SQPConfig(horizon=H, iterations=1))
+    real = engine.substep
+
+    def forbidden(*a, **k):
+        raise AssertionError("a forward rollout took the plain engine")
+
+    engine.substep = forbidden
+    try:
+        ss.substep.launches = 0
+        actions, state, info = solver.solve(env, solver.init_state(4))
+        torch.cuda.synchronize()
+        assert ss.substep.launches == 2 * 2 * H, ss.substep.launches
+    finally:
+        engine.substep = real
+    assert actions.shape == (4, 18) and torch.isfinite(info["cost"]).all()

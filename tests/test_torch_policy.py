@@ -220,3 +220,85 @@ def test_sac_player_matches_jax_on_converted_params(tasks, tmp_path):
     with torch.no_grad():
         tq = tp.critic(_t(obs), _t(act))
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-5)
+
+
+PLAYER_CFGS = {"units_16_16": dict(units=(16, 16)),
+               "central_value": dict(units=(16, 16), central_value=True,
+                                     central_value_units=(16, 8)),
+               "no_input_normalization": dict(units=(16, 16),
+                                              normalize_input=False)}
+
+
+@pytest.mark.parametrize("name", list(PLAYER_CFGS))
+def test_ppo_player_serves_the_cfg_it_is_given(tasks, name, tmp_path):
+    """A TrainState of a non-default PPOConfig, written by the JAX package
+    (its random init, with non-trivial running statistics), served by both
+    players built from that cfg: the same actions to 1e-5."""
+    from bez_isaacgym_tpu.rl.players import PpoPlayerContinuous as JPlayer
+    from bez_isaacgym_tpu.rl.ppo import PPOConfig as JPPOConfig
+    from bez_isaacgym_tpu.utils import checkpoint as jckpt
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+
+    jtask, ttask = tasks
+    kw = PLAYER_CFGS[name]
+    jp = JPlayer(jtask, JPPOConfig(**kw), seed=3)
+    rng = np.random.default_rng(8)
+    rms = jp.train_state.obs_rms._replace(
+        mean=jnp.asarray(rng.normal(size=54), jnp.float32),
+        var=jnp.asarray(rng.uniform(0.5, 4.0, size=54), jnp.float32))
+    jp.train_state = jp.train_state._replace(obs_rms=rms)
+    path = tmp_path / "ts.ckpt"
+    jckpt.save(str(path), jp.train_state)
+    tp = tplayers.PpoPlayerContinuous(ttask, PPOConfig(**kw),
+                                      checkpoint_path=str(path), device="cpu")
+    obs = 3.0 * _obs(12)
+    ja = np.asarray(jp.get_action(obs, deterministic=True))
+    ta = tp.get_action(_t(obs), deterministic=True).numpy()
+    np.testing.assert_allclose(ta, ja, atol=1e-5)
+    # Normalization is on exactly when the cfg asks for it.
+    with torch.no_grad():
+        raw = tp.net(_t(obs))[0].clamp(-1, 1).numpy()
+    assert np.allclose(ta, raw, atol=1e-6) == (not kw.get(
+        "normalize_input", True))
+
+
+def test_ppo_player_serves_a_runner_checkpoint_with_other_units(tasks,
+                                                                tmp_path):
+    """A checkpoint the port's Runner writes with train.units=[16,16] is
+    served by PpoPlayerContinuous(task, cfg) as the trainer acts, and by
+    the JAX player with the same cfg."""
+    from bez_isaacgym_tpu.rl.players import PpoPlayerContinuous as JPlayer
+    from bez_isaacgym_tpu.rl.ppo import PPOConfig as JPPOConfig
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+    from bez_isaacgym_tpu_torch.rl.runner import Runner
+    from bez_isaacgym_tpu_torch.utils.config import parse_overrides
+
+    runner = Runner(parse_overrides([
+        "num_envs=4", "train.horizon=2", "train.minibatch_size=4",
+        "train.mini_epochs=1", "task_cfg.substeps=1", "train.units=[16,16]",
+        "save_frequency=1", "save_best_after=0", "device=cpu",
+        f"output_dir={tmp_path}"]))
+    ts = runner.train(1)
+    path = next(Path(runner.run_dir).glob("*_1_rew_*.ckpt"))
+    jtask, ttask = tasks
+    tp = tplayers.PpoPlayerContinuous(ttask, PPOConfig(units=(16, 16)),
+                                      checkpoint_path=str(path), device="cpu")
+    obs = _obs(13)
+    ta = tp.get_action(_t(obs))
+    assert torch.equal(ta, runner.ppo.act(ts, _t(obs)))
+    jp = JPlayer(jtask, JPPOConfig(units=(16, 16)), checkpoint_path=str(path))
+    np.testing.assert_allclose(
+        ta.numpy(), np.asarray(jp.get_action(obs, deterministic=True)),
+        atol=1e-5)
+    with pytest.raises(RuntimeError):
+        # The default cfg's (400, 200, 100) net cannot take these weights.
+        tplayers.PpoPlayerContinuous(ttask, checkpoint_path=str(path),
+                                     device="cpu")
+
+
+def test_ppo_player_refuses_a_recurrent_cfg(tasks):
+    from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
+
+    with pytest.raises(ValueError, match="Runner"):
+        tplayers.PpoPlayerContinuous(tasks[1], PPOConfig(rnn_units=8),
+                                     device="cpu")

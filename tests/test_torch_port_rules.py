@@ -70,7 +70,8 @@ NEW_MODULES = ("tasks/walk.py", "tasks/orient.py", "tasks/goalie.py",
                "control/controller.py", "control/warmstart.py",
                "rl/ppo.py", "rl/ppo_rnn.py", "rl/runner.py",
                "utils/config.py", "utils/seeding.py", "utils/metrics.py",
-               "utils/checkpoint.py", "convert.py", "train.py", "play.py")
+               "utils/checkpoint.py", "convert.py", "train.py", "play.py",
+               "solvers/sqp.py", "solvers/riccati.py", "solvers/hybrid.py")
 # numpy modules the port keeps as copies of the JAX package's: equal to
 # them once the package name is swapped.
 CONTROL_COPIES = ("transformation", "path", "footpath", "crotchpath", "ik",
@@ -135,7 +136,8 @@ def test_port_trajectories_are_exactly_the_jax_packages():
 
 def _entry_points():
     from bez_isaacgym_tpu_torch.eval import task_eval, tracking
-    from bez_isaacgym_tpu_torch.eval.kick_eval import eval_mppi, eval_policy
+    from bez_isaacgym_tpu_torch.eval.kick_eval import (eval_mppi, eval_policy,
+                                                       eval_sqp_policy)
     from bez_isaacgym_tpu_torch.play import LaunchModel
     from bez_isaacgym_tpu_torch.rl.players import (PpoPlayerContinuous,
                                                    PpoPlayerDiscrete,
@@ -143,7 +145,8 @@ def _entry_points():
     from bez_isaacgym_tpu_torch.tasks.registry import make_task, task_map
     return (BezTask.__init__, resolve_device,
             PpoPlayerContinuous.__init__, PpoPlayerDiscrete.__init__,
-            SACPlayer.__init__, eval_policy, eval_mppi, make_task,
+            SACPlayer.__init__, eval_policy, eval_mppi, eval_sqp_policy,
+            make_task,
             task_eval.eval_goalie, task_eval.eval_orient,
             task_eval.eval_walk, tracking.kick_skill_tracking,
             tracking.walk_tracking, LaunchModel.__init__,
@@ -192,6 +195,21 @@ def test_no_gpu_raises_instead_of_running_on_cpu():
         kick_eval.eval_policy("", num_envs=1, steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         kick_eval.main(["--solver", "mppi", "--num-envs", "1"])
+
+
+@pytest.mark.parametrize("solver", ["hybrid", "sqp-policy"])
+def test_no_gpu_raises_for_the_sqp_entry_points(solver):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    from bez_isaacgym_tpu_torch.eval import kick_eval
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kick_eval.main(["--solver", solver, "--num-envs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if solver == "hybrid":
+            kick_eval.eval_mppi(num_envs=1, steps=1, use_sqp=True)
+        else:
+            kick_eval.eval_sqp_policy(num_envs=1, steps=1)
 
 
 @pytest.mark.parametrize("name", ["bez_walk", "bez_orient", "bez_goalie"])

@@ -272,7 +272,8 @@ def test_player_and_resume_read_the_runners_checkpoint(trained):
         assert torch.equal(saved.params[k], ts.params[k])
         assert torch.equal(saved.opt_state.nu[k], ts.opt_state.nu[k])
     assert int(saved.epoch) == 2
-    player = PpoPlayerContinuous(port.task, str(path), device="cpu")
+    player = PpoPlayerContinuous(port.task, checkpoint_path=str(path),
+                                 device="cpu")
     obs = torch.randn((64, 54), generator=torch.Generator().manual_seed(0))
     assert torch.equal(player.get_action(obs), port.ppo.act(ts, obs))
     resumed = Runner(tconfig.parse_overrides(
