@@ -113,7 +113,22 @@ Phase 12 the SQP stage and the hybrid solver: (a) the struct linearization
          tick, peak memory; (d) eval_mppi(use_sqp=True) at phase 3's MPPI
          config, S=16, 20 ticks, every SQP cost at most its MPPI nominal's,
          194 launches per tick.
-In phases 6, 7, 9, 10, 11 and 12 the env steps are counted at
+Phase 13 the standalone classical walk (eval/walk_standalone.py): the kernel
+         against its plain version at this path's batch, B=128 (the walk
+         scene, substeps 4, from the JAX eval's own seed 0-1 initial
+         states, tests/data/), and at B=64, one substep and five control
+         steps at phase 1's bars, ms per launch and bound_ms; then
+         eval_classical_walk from those states, 128 envs, 10 s episodes,
+         the plain engine forbidden, each rate (win, fall, stray, timeout)
+         within 3 binomial standard deviations (n=128) of the JAX
+         package's f32 run from the same states; ms per control step, the
+         host time in the leg plans and the feedforward per leg, the
+         eval's wall time, and the idle share of 50 profiled steps; the
+         camera model's pixel -> floor -> pixel round trip; the native
+         C++ libraries built from native/ with this machine's compiler,
+         their C++ unit tests, and compile_urdf_native against the port's
+         Python URDF compile on the four asset variants.
+In phases 6, 7, 9, 10, 11, 12 and 13 the env steps are counted at
 BezTask.step_batch, apart from the launch counter, and the launches must be
 exactly the substeps (times H+1 for MPPI) of every step; a tracking
 drive's steps must be its plan's length.
@@ -183,7 +198,11 @@ OPS = {">=": operator.ge, "<=": operator.le, "==": operator.eq,
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    faulthandler.enable()   # a crash in native code prints its Python stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -767,7 +786,7 @@ def main() -> int:
 
     def time_launch(label, tables_, x_, p_, phase="phase8"):
         B_ = x_.shape[1]
-        if B_ <= 64:
+        if B_ <= 128:
             ms_, how = graph_ms(torch, ss, tables_, x_, p_), "CUDA graph"
         else:
             ms_ = cuda_ms(torch, lambda: ss.substep(tables_, x_, p_),
@@ -1663,6 +1682,237 @@ def main() -> int:
     finally:
         engine.substep = real_substep
     log(f"phase12 s={time.time() - t12:.1f}")
+
+    # ---------------- phase 13: the standalone classical walk ---------------
+    import os
+    import shutil
+    import tempfile
+
+    from bez_isaacgym_tpu_torch.control.camera import Camera
+    from bez_isaacgym_tpu_torch.control.transformation import Transformation
+    from bez_isaacgym_tpu_torch.eval import walk_standalone
+    from bez_isaacgym_tpu_torch.models.robot import build_robot_model
+    from bez_isaacgym_tpu_torch.models.urdf import parse_urdf
+    from bez_isaacgym_tpu_torch.native import bindings as native
+
+    t13 = time.time()
+    # The JAX eval's own initial states at seeds 0 and 1, 64 envs each
+    # (tests/torch_walk_same_states.py --write), one eval of 128 envs.
+    same_w = load_env_states(
+        root / "tests" / "data" / "walk_jax_reset_states.npz")
+    B13 = same_w.progress.shape[0]
+    assert B13 == 128, B13
+    walk13 = WalkTask(device="cuda")
+    tables13 = walk13._step_physics_batch.tables
+    m13 = walk13.model
+    assert (m13.nb, m13.nq, len(m13.cpoint_body)) == (19, 18, 96), m13.nb
+    assert not tables13.cfg.has_ball and tables13.cfg.substeps == 4
+
+    # 13a: the kernel at this path's batch (B=128) and at one seed's (B=64)
+    # from those states, against its plain version at phase 1's bars.
+    g13 = torch.Generator(device=dev).manual_seed(13)
+    for B_ in (B13, 64):
+        env_ = tree_map(lambda v: v[:B_].contiguous(), same_w)
+        acts_ = 0.2 * torch.randn((B_, 18), generator=g13, device=dev)
+        tg_ = walk13._pre_physics(env_, acts_, g13)[1]
+        x_ = ss.pack_state(env_.physics)
+        p_ = ss.pack_params(m13, env_.dyn, tg_)
+        _, err_, _ = one_substep(tables13, x_, p_)
+        assert err_ < 1e-3, (B_, err_)
+        max_abs_err = max(max_abs_err, err_)
+        log(f"phase13 walk from the JAX states one substep B={B_}: "
+            f"max|kernel-plain| on the state rows = {err_:.3e}")
+        check_steps(m13, walk13.scene, env_.physics, env_.dyn, tg_, 5,
+                    f"walk from the JAX states B={B_} 5 steps",
+                    phase="phase13")
+        time_launch(f"walk_standalone_b{B_}", tables13, x_, p_,
+                    phase="phase13")
+
+    # 13b: eval_classical_walk from those states through its entry point,
+    # the plain engine's substep forbidden.  Host time in the leg plans
+    # (_plan_legs: one call per step, the step's plans side by side in the
+    # worker processes) and in the feedforward (_ff_plan, one per leg),
+    # and torch.profiler over a window of 50 control steps.
+    plan_calls, ff_s = [], []       # (step, legs, wall s); wall s per leg
+    W0, WN = 300, 50
+    win = {"step": 0, "prof": None, "t0": 0.0, "wall": None}
+    real_plan_legs = walk_standalone._plan_legs
+    real_ff_plan = walk_standalone._ff_plan
+
+    def timed_plan_legs(requests, pool):
+        t_ = time.time()
+        out = real_plan_legs(requests, pool)
+        if requests:
+            plan_calls.append((win["step"], len(requests), time.time() - t_))
+        return out
+
+    def timed_ff_plan(*a):
+        t_ = time.time()
+        out = real_ff_plan(*a)
+        ff_s.append(time.time() - t_)
+        return out
+
+    def windowed_step(self, *a, **k):
+        out = BezTask.step_batch(self, *a, **k)   # run_eval's counted one
+        win["step"] += 1
+        if win["step"] == W0:
+            torch.cuda.synchronize()
+            win["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            win["prof"].start()
+            win["t0"] = time.time()
+        elif win["step"] == W0 + WN:
+            torch.cuda.synchronize()
+            win["wall"] = time.time() - win["t0"]
+            win["prof"].stop()
+        return out
+
+    resets13 = []
+
+    def first_from_jax_w(self, gen, n, dr_step=0):
+        resets13.append(n)
+        if len(resets13) == 1:
+            assert n == B13, n
+            return same_w
+        return BezTask.reset(self, gen, n, dr_step)
+
+    # The JAX package's f32 run from these states on the CPU (`python
+    # tests/torch_walk_same_states.py`): win 82, fall 13, stray 26 and
+    # timeout 7 of 128 (seed 0: 41 / 7 / 13 / 3; seed 1: 41 / 6 / 13 / 4).
+    # The bars are 3 binomial standard deviations (n=128) on each side.
+    bars13 = []
+    for metric, count in (("win_rate", 82), ("fall_rate", 13),
+                          ("stray_rate", 26), ("timeout_rate", 7)):
+        p_ref = count / B13
+        sd3 = 3.0 * math.sqrt(p_ref * (1.0 - p_ref) / B13)
+        bars13 += [(metric, ">=", p_ref - sd3), (metric, "<=", p_ref + sd3)]
+    label13 = "standalone walk from the JAX eval's states, seeds 0-1"
+    engine.substep = plain_forbidden
+    WalkTask.reset = first_from_jax_w
+    WalkTask.step_batch = windowed_step
+    walk_standalone._plan_legs = timed_plan_legs
+    walk_standalone._ff_plan = timed_ff_plan
+    try:
+        t_eval = time.time()
+        res13 = run_eval("phase13", label13,
+                         lambda: walk_standalone.eval_classical_walk(
+                             num_envs=B13,
+                             plan_workers=walk_standalone.host_plan_workers()),
+                         4, bars13, max_ticks=624, num_envs=B13)
+        wall13 = time.time() - t_eval
+    finally:
+        engine.substep = real_substep
+        del WalkTask.reset, WalkTask.step_batch
+        walk_standalone._plan_legs = real_plan_legs
+        walk_standalone._ff_plan = real_ff_plan
+        if win["prof"] is not None and win["wall"] is None:
+            win["prof"].stop()
+    assert resets13 and resets13[0] == B13, resets13
+    ticks13 = ticks_by_path[label13]
+    legs13 = sum(n for _, n, _ in plan_calls)
+    plan13 = sum(s for _, _, s in plan_calls)
+    burst = max(plan_calls, key=lambda c: c[1])
+    assert len(ff_s) <= legs13 and res13["replanned_segments"] < legs13
+    log(f"phase13 {label13}: win {res13['win_rate']:.6f} (the JAX package's"
+        f" f32 run from these states 82/128 = 0.640625; the README's TPU "
+        f"figure 60.9-62.5 % is a reference, not a bar); "
+        f"mean_min_goal_dist_m={res13['mean_min_goal_dist_m']:.6f} (JAX f32 "
+        f"0.06825 / 0.05420 at seeds 0 / 1) mean_final_goal_dist_m="
+        f"{res13['mean_final_goal_dist_m']:.6f} (JAX 0.09030 / 0.06893) "
+        f"replanned_segments={res13['replanned_segments']} (JAX 71 + 73)")
+    log(f"phase13 {label13}: eval wall s={wall13:.2f} for {ticks13} steps "
+        f"({1e3 * wall13 / ticks13:.2f} ms per control step, "
+        f"{ms_per_tick[label13]:.2f} by CUDA events); {legs13} leg plans "
+        f"in {len(plan_calls)} steps, {plan13:.2f} s of wall in _plan_legs "
+        f"({1e3 * plan13 / legs13:.1f} ms per leg; the largest step "
+        f"{burst[1]} legs at step {burst[0]} in {burst[2]:.2f} s), "
+        f"_ff_plan {len(ff_s)} legs {1e3 * sum(ff_s) / len(ff_s):.2f} ms "
+        f"per leg; the rest of the loop {wall13 - plan13 - sum(ff_s):.2f} s"
+        f" | {card_line()}")
+    if win["wall"] is not None:
+        ev13 = [e for e in win["prof"].key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        d13 = sum(dev_us(e) for e in ev13) / 1e3
+        k13 = sum(dev_us(e) for e in ev13
+                  if "bez_substep_kernel" in e.key) / 1e3
+        legs_w = sum(n for s, n, _ in plan_calls if W0 <= s < W0 + WN)
+        log(f"phase13 profile of control steps {W0}-{W0 + WN - 1} (under the"
+            f" profiler): wall_ms_per_step={1e3 * win['wall'] / WN:.2f} "
+            f"device_ms_per_step={d13 / WN:.3f} substep_kernel_ms_per_step="
+            f"{k13 / WN:.3f} kernels_per_step="
+            f"{sum(e.count for e in ev13) / WN:.1f} leg plans in the window="
+            f"{legs_w} idle_share={1 - d13 / (1e3 * win['wall']):.4f}")
+    else:
+        log(f"phase13 profile: the eval ended after {ticks13} steps, before "
+            f"the window's end at step {W0 + WN}")
+
+    # 13c: the camera model on this machine: tests/test_viz_misc.py's round
+    # trip, then a head-height camera pitched down: pixel -> floor -> pixel.
+    cam = Camera(Transformation(position=[0, 0, 0.5]))
+    assert np.allclose(cam.world_to_pixel([2.0, 0.0, 0.5]), [320, 240],
+                       atol=1e-6)
+    assert cam.world_to_pixel([-1.0, 0.0, 0.5]) is None
+    ground = cam.find_floor_coordinate(320, 400)
+    assert ground is not None and ground[0] > 0 and abs(ground[2]) < 1e-9
+    cam_err = float(np.abs(cam.world_to_pixel(ground) - [320, 400]).max())
+    head = Camera(Transformation(position=[0.1, -0.2, 0.45],
+                                 quaternion=[0.0, np.sin(0.3), 0.0,
+                                             np.cos(0.3)]))
+    n_floor = 0
+    for u in np.linspace(0.0, 640.0, 9):
+        for v in np.linspace(0.0, 480.0, 7):
+            g_ = head.find_floor_coordinate(u, v)
+            if g_ is None:
+                continue
+            n_floor += 1
+            cam_err = max(cam_err, float(np.abs(
+                head.world_to_pixel(g_) - [u, v]).max()))
+    assert n_floor > 0 and cam_err < 1e-4, (n_floor, cam_err)
+    log(f"phase13 camera: pixel -> floor -> pixel round trip on {n_floor + 1}"
+        f" pixels, max error {cam_err:.3e} px")
+
+    # 13d: the native C++ libraries built from native/ with this machine's
+    # compiler (make), their C++ unit tests, and the native URDF compiler
+    # against the port's Python compile on every Bez asset variant.
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    cxx = os.environ.get("CXX", "g++")
+    cxx_v = subprocess.run([cxx, "--version"], capture_output=True,
+                           text=True).stdout.splitlines()[0]
+    t_ = time.time()
+    out_dir = native.build()
+    build_s = time.time() - t_
+    for exe in native.TESTS:
+        r_ = subprocess.run([str(out_dir / exe)], capture_output=True,
+                            text=True)
+        assert r_.returncode == 0 and "0 failed" in r_.stdout, r_.stdout
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("stl", "box", "box_sensor", "stl_sensor"):
+            text = bez.load_spec(variant).to_urdf()
+            path = Path(tmp) / f"bez_{variant}.urdf"
+            path.write_text(text)
+            nat = native.compile_urdf_native(str(path))
+            py = build_robot_model(parse_urdf(text))
+            assert (nat["nb"], nat["nq"]) == (py.nb, py.nq), variant
+            assert nat["joint_names"] == py.joint_names
+            assert nat["body_names"] == py.body_names
+            assert np.array_equal(nat["parent"], py.parent)
+            limits = np.stack([py.dof_lower, py.dof_upper, py.dof_effort,
+                               py.dof_velocity], axis=1)
+            for key in ("tree_pos", "tree_rot", "axis", "mass", "com",
+                        "inertia", "limits"):
+                want = limits if key == "limits" else getattr(py, key)
+                worst = max(worst, float(np.abs(nat[key] - want).max()))
+    assert worst <= 1e-12, worst
+    log(f"phase13 native: make -C native BUILD={out_dir.relative_to(root)} "
+        f"CXXFLAGS='{native.CXXFLAGS}' with {cxx} ({cxx_v}) "
+        f"s={build_s:.2f} ({', '.join(native.LIBRARIES)}); C++ unit tests "
+        f"{' and '.join(native.TESTS)} pass; compile_urdf_native against "
+        f"the Python compile on 4 asset variants: max diff {worst:.1e}")
+    p13 = {"B": B13, "substeps": 4, "launches": launches_by_path[label13],
+           "steps": ticks13, "ms": p8[f"walk_standalone_b{B13}"]["ms"],
+           "bound_ms": p8[f"walk_standalone_b{B13}"]["bound_ms"]}
+    log(f"phase13 s={time.time() - t13:.1f}")
     assert not misses, misses
 
     kernels = [{
@@ -1687,6 +1937,7 @@ def main() -> int:
            for m in ("ms", "bound_ms")},
         **{f"{m}_{k}": v[m] for k, v in p12.items() for m in ("ms",
                                                              "bound_ms")},
+        "walk_standalone": p13,
         "launches_by_path": launches_by_path,
         "envs_per_block": lc.envs_per_block,
     }]

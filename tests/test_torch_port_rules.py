@@ -12,6 +12,7 @@
 import ast
 import dataclasses
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -39,7 +40,7 @@ PORT_FILES = sorted(p for p in PORT.rglob("*.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
              "bez_isaacgym_tpu")
 SUBPACKAGES = ("models", "ops", "tasks", "solvers", "rl", "envs", "eval",
-               "control", "utils")
+               "control", "utils", "native")
 
 
 def _imported_modules(path: Path):
@@ -71,11 +72,13 @@ NEW_MODULES = ("tasks/walk.py", "tasks/orient.py", "tasks/goalie.py",
                "rl/ppo.py", "rl/ppo_rnn.py", "rl/runner.py",
                "utils/config.py", "utils/seeding.py", "utils/metrics.py",
                "utils/checkpoint.py", "convert.py", "train.py", "play.py",
-               "solvers/sqp.py", "solvers/riccati.py", "solvers/hybrid.py")
+               "solvers/sqp.py", "solvers/riccati.py", "solvers/hybrid.py",
+               "eval/walk_standalone.py", "control/camera.py",
+               "native/bindings.py", "native/__init__.py")
 # numpy modules the port keeps as copies of the JAX package's: equal to
 # them once the package name is swapped.
 CONTROL_COPIES = ("transformation", "path", "footpath", "crotchpath", "ik",
-                  "soccerbot")
+                  "soccerbot", "camera")
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES + tuple(
@@ -138,6 +141,8 @@ def _entry_points():
     from bez_isaacgym_tpu_torch.eval import task_eval, tracking
     from bez_isaacgym_tpu_torch.eval.kick_eval import (eval_mppi, eval_policy,
                                                        eval_sqp_policy)
+    from bez_isaacgym_tpu_torch.eval.walk_standalone import \
+        eval_classical_walk
     from bez_isaacgym_tpu_torch.play import LaunchModel
     from bez_isaacgym_tpu_torch.rl.players import (PpoPlayerContinuous,
                                                    PpoPlayerDiscrete,
@@ -149,7 +154,8 @@ def _entry_points():
             make_task,
             task_eval.eval_goalie, task_eval.eval_orient,
             task_eval.eval_walk, tracking.kick_skill_tracking,
-            tracking.walk_tracking, LaunchModel.__init__,
+            tracking.walk_tracking, eval_classical_walk,
+            LaunchModel.__init__,
             *(cls.__init__ for cls in task_map.values()))
 
 
@@ -232,6 +238,31 @@ def test_no_gpu_raises_for_the_new_entry_points(name):
         tracker()
     with pytest.raises(RuntimeError, match="CUDA"):
         tracking.main([])
+
+
+def test_no_gpu_raises_for_the_standalone_walk():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU path is not taken")
+    from bez_isaacgym_tpu_torch.eval import walk_standalone
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walk_standalone.eval_classical_walk(num_envs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walk_standalone.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walk_standalone.main(["--plain-engine", "--num-envs", "1"])
+
+
+def test_standalone_walk_module_runs_on_the_cpu_when_asked():
+    """`python -m ...walk_standalone --device cpu` runs the plain engine
+    end to end and prints the result dict."""
+    res = subprocess.run(
+        [sys.executable, "-m", "bez_isaacgym_tpu_torch.eval.walk_standalone",
+         "--device", "cpu", "--num-envs", "2", "--episode-length-s", "0.1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout)
+    assert out["num_envs"] == 2 and out["timeout_rate"] == 1.0, out
 
 
 def test_cpu_task_uses_the_plain_engine():
