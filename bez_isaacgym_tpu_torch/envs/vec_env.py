@@ -3,8 +3,12 @@
 Port of `bez_isaacgym_tpu/envs/vec_env.py`: `step(actions) -> (obs, reward,
 done, info)` over `num_envs` environments with auto-reset, on the task's
 device (the CUDA substep kernel there).  Randomness comes from one
-`torch.Generator` seeded with `seed`.  Sharding the env axis waits for the
-parallel slice.
+`torch.Generator` seeded with `seed`.
+
+`sharding` (`parallel/mesh.py::env_sharding(mesh)`, the JAX `sharding`
+argument): every rank resets all `num_envs` envs from its generator (the
+same seed gives every rank the same states) and keeps its shard, which it
+then steps: observations, rewards and actions are the shard's rows.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from bez_isaacgym_tpu_torch.utils.spaces import Box
 
 class VecEnv:
 
-    def __init__(self, task: BezTask, num_envs: int, seed: int = 0):
+    def __init__(self, task: BezTask, num_envs: int, seed: int = 0,
+                 sharding=None):
         self.task = task
         self.num_envs = num_envs
+        self.sharding = sharding
         self.num_obs = task.num_obs
         self.num_actions = task.num_actions
         self.device = task.device
@@ -37,7 +43,9 @@ class VecEnv:
         step (vec_task.py:361-377), whose state the next step() continues
         from."""
         self.state = self.task.reset(self.gen, self.num_envs)
-        zeros = torch.zeros((self.num_envs, self.num_actions),
+        if self.sharding is not None:
+            self.state = self.sharding(self.state)
+        zeros = torch.zeros((self.state.progress.shape[0], self.num_actions),
                             dtype=torch.float32, device=self.device)
         out: StepOutput = self.task.step_batch(self.state, zeros, self.gen)
         self.state = out.state

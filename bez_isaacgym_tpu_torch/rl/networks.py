@@ -15,6 +15,7 @@ import math
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -114,15 +115,30 @@ class RunningMeanStd(NamedTuple):
                               count=torch.tensor(1e-4, dtype=F32,
                                                  device=device))
 
-    def update(self, batch: Tensor) -> "RunningMeanStd":
+    def update(self, batch: Tensor, group=None) -> "RunningMeanStd":
         """Merge batch moments (batch axes 0 ... -mean.dim()-1) by Chan's
-        algorithm.  The cross-device reduction waits for the parallel
-        slice."""
+        algorithm.
+
+        group: the process group whose ranks' batch moments are summed
+        first (the JAX `axis_name` psum, in its two rounds: the count and
+        the mean, then the variance about the global mean), so every rank
+        folds in the global batch and the stats stay replicated."""
         axes = tuple(range(batch.dim() - self.mean.dim()))
         b_mean = batch.mean(dim=axes)
         b_var = batch.var(dim=axes, unbiased=False)
         b_count = torch.tensor(batch.numel() / max(1, self.mean.numel()),
                                dtype=F32, device=batch.device)
+        if group is not None:
+            # One all_reduce of [count, mean * count], then one of the
+            # variance terms.
+            first = torch.cat([b_count.reshape(1),
+                               (b_mean * b_count).reshape(-1)])
+            dist.all_reduce(first, group=group)
+            tot = first[0]
+            g_mean = first[1:].reshape(b_mean.shape) / tot
+            g_var = (b_var + (b_mean - g_mean) ** 2) * b_count
+            dist.all_reduce(g_var, group=group)
+            b_mean, b_var, b_count = g_mean, g_var / tot, tot
         delta = b_mean - self.mean
         tot = self.count + b_count
         new_mean = self.mean + delta * b_count / tot

@@ -18,6 +18,13 @@ and the optimizer is written out: optax's `clip_by_global_norm` then
 learning rate.  Draws come from an explicit `torch.Generator`; the
 rollout's Gaussian noise and each mini-epoch's permutation can instead be
 passed in (parity tests feed the JAX package's draws).
+
+With a process `group` (data-parallel training, `parallel/dp.py`) every
+rank runs this on its shard of the envs, and the JAX package's `axis_name`
+collectives become all_reduces over the group: the running stats' batch
+moments, the advantages' mean and std, and each minibatch's gradients and
+KL, averaged in one all_reduce of a flat buffer.  With `group=None` nothing
+is reduced.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -206,14 +214,26 @@ def episode_metrics(traj) -> dict:
     }
 
 
+def pmean_flat(tensors: list, group) -> list:
+    """The JAX `pmean` of each tensor over the group's ranks, in one
+    all_reduce of a flat f32 buffer (gloo pays per call)."""
+    flat = torch.cat([t.reshape(-1).to(F32) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    return [x.reshape(t.shape) for x, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 class PPO:
-    """PPO on `task` with `num_envs` envs (the JAX `make_ppo`)."""
+    """PPO on `task` with `num_envs` envs (the JAX `make_ppo`); `group`
+    is the data-parallel process group (the JAX `axis_name`)."""
 
     def __init__(self, task: BezTask, num_envs: int,
-                 cfg: PPOConfig = PPOConfig()):
+                 cfg: PPOConfig = PPOConfig(), group=None):
         self.task = task
         self.num_envs = num_envs
         self.cfg = cfg
+        self.group = group
         self.device = task.device
         # The architecture; its own parameters are never read (TrainState
         # holds them).
@@ -328,13 +348,17 @@ class PPO:
         cfg = self.cfg
         returns_n = returns
         if cfg.normalize_value:
-            ts = ts._replace(value_rms=ts.value_rms.update(returns))
+            ts = ts._replace(value_rms=ts.value_rms.update(returns,
+                                                           self.group))
             returns_n = ts.value_rms.normalize(returns)
         if cfg.normalize_advantage:
-            mean = adv.mean()
-            std = torch.sqrt(((adv - mean) ** 2).mean())
+            mean = self._pmean(adv.mean())
+            std = torch.sqrt(self._pmean(((adv - mean) ** 2).mean()))
             adv = (adv - mean) / (std + 1e-8)
         return ts, adv, returns_n
+
+    def _pmean(self, x: Tensor) -> Tensor:
+        return x if self.group is None else pmean_flat([x], self.group)[0]
 
     def _sgd(self, ts: TrainState, n_items: int, mb_items: int, take,
              loss_fn, gen, perms):
@@ -359,6 +383,11 @@ class PPO:
                 grads = {k: torch.zeros_like(v) if g is None else g
                          for (k, v), g in zip(p.items(), grads)}
                 kl = aux[3].detach()
+                if self.group is not None:
+                    # The gradients' and the KL's pmean (the KL keeps the
+                    # adaptive LR replicated), one all_reduce.
+                    *flat, kl = pmean_flat([*grads.values(), kl], self.group)
+                    grads = dict(zip(grads, flat))
                 lr = adapt_lr(lr, kl, cfg)
                 u, opt_state = adam_update(
                     clip_by_global_norm(grads, cfg.grad_norm), opt_state)
@@ -398,7 +427,7 @@ class PPO:
         if not self.cfg.normalize_input:
             return ts
         return ts._replace(obs_rms=ts.obs_rms.update(
-            traj.obs.reshape(-1, self.task.num_obs)))
+            traj.obs.reshape(-1, self.task.num_obs), self.group))
 
     def train_iter(self, ts: TrainState, env_state: EnvState,
                    last_obs: Tensor, gen: torch.Generator,

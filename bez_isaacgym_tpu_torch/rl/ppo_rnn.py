@@ -9,7 +9,7 @@ before_mlp, concat_input; seq_len 4 at :78):
   window start, and replays the cell through the window with the same
   done-zeroing, so minibatches are drawn over sequences, not steps;
 - everything else (GAE, clipped losses, adaptive-KL LR, running norms, the
-  optimizer) is rl/ppo.py's.
+  optimizer, and the data-parallel `group`'s all_reduces) is rl/ppo.py's.
 """
 
 from __future__ import annotations
@@ -58,13 +58,14 @@ class PPORNN(PPO):
     act(ts, obs, carry, gen=None, deterministic=True) -> (action, carry)
     """
 
-    def __init__(self, task: BezTask, num_envs: int, cfg: PPOConfig):
+    def __init__(self, task: BezTask, num_envs: int, cfg: PPOConfig,
+                 group=None):
         if cfg.rnn_units <= 0:
             raise ValueError("PPORNN needs cfg.rnn_units > 0")
         if cfg.horizon % cfg.seq_len:
             raise ValueError(f"horizon {cfg.horizon} is not a multiple of "
                              f"seq_len {cfg.seq_len}")
-        super().__init__(task, num_envs, cfg)
+        super().__init__(task, num_envs, cfg, group)
 
     def initial_carry(self, n: int | None = None):
         z = torch.zeros((n or self.num_envs, self.cfg.rnn_units), dtype=F32,

@@ -116,11 +116,15 @@ def tree_where(mask: Tensor, a, b):
 
 
 def tree_map(fn, a):
-    """Apply fn to every tensor of (nested) NamedTuples."""
+    """Apply fn to every leaf but None of (nested) NamedTuples, tuples and
+    dicts."""
     if a is None:
         return None
+    if isinstance(a, dict):
+        return {k: tree_map(fn, v) for k, v in a.items()}
     if isinstance(a, tuple):
-        return type(a)(*[tree_map(fn, x) for x in a])
+        out = [tree_map(fn, x) for x in a]
+        return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
     return fn(a)
 
 

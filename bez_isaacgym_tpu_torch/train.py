@@ -10,10 +10,16 @@ bez_isaacgym/train.py).
         checkpoint=runs/Bez_Walk/Bez_Walk_best.ckpt
 
 Runs on the CUDA device (the physics through the substep kernel) and
-raises without one; `device=cpu` runs a tiny run on the CPU.
+raises without one; `device=cpu` runs a tiny run on the CPU.  With more
+than one card, train data-parallel with one process per card (NCCL):
+
+    torchrun --nproc-per-node 4 -m bez_isaacgym_tpu_torch.train \
+        task=bez_kick num_envs=16384
 """
 
 import sys
+
+import torch.distributed as dist
 
 from bez_isaacgym_tpu_torch.rl.runner import Runner
 from bez_isaacgym_tpu_torch.utils.config import parse_overrides
@@ -21,8 +27,12 @@ from bez_isaacgym_tpu_torch.utils.config import parse_overrides
 
 def main(argv):
     cfg = parse_overrides(argv)
-    runner = Runner(cfg)
-    return runner.play() if cfg.test else runner.train()
+    try:
+        runner = Runner(cfg)
+        return runner.play() if cfg.test else runner.train()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,14 +21,19 @@ from typing import Any
 import torch
 
 from bez_isaacgym_tpu_torch import resolve_device
+from bez_isaacgym_tpu_torch.parallel.distributed import under_torchrun
 from bez_isaacgym_tpu_torch.rl.ppo import PPOConfig
 from bez_isaacgym_tpu_torch.tasks.base import TaskConfig
 from bez_isaacgym_tpu_torch.tasks.registry import default_configs
 
-PARALLEL_WAITS = ("multi_chip=True with more than one visible CUDA device "
-                  "needs the parallel layer (torch.distributed), which is "
-                  "not ported yet: ROADMAP section 1 item 18.  Pass "
-                  "multi_chip=False, or make one device visible")
+
+def launch_message(n_cards: int) -> str:
+    """What to do when multi_chip finds several cards but one process."""
+    return (f"multi_chip=True with {n_cards} visible CUDA devices needs one "
+            f"process per card: launch with `torchrun --nproc-per-node "
+            f"{n_cards} -m bez_isaacgym_tpu_torch.train ...` (data-parallel "
+            f"PPO over torch.distributed), or pass multi_chip=False to run "
+            f"on one card")
 
 
 @dataclass
@@ -46,12 +51,12 @@ class RunConfig:
     save_frequency: int = 100         # bez_kickPPO.yaml:66
     save_best_after: int = 100        # bez_kickPPO.yaml:65
     log_frequency: int = 10
-    multi_chip: bool = True           # use all visible devices (raises
-                                      # with more than one until the
-                                      # parallel layer is ported)
+    multi_chip: bool = True           # under torchrun: data-parallel
+                                      # over the ranks; with several
+                                      # cards and one process it raises
     play_steps: int = 600             # play: eval loop length
-    render: str = ""                  # play: an episode render (waits for
-                                      # the viz port; set, it raises)
+    render: str = ""                  # play: "live" streams a viewer,
+                                      # a path writes env 0's episode
     device: str = "cuda"              # "cpu" for tiny runs on the CPU
     train: PPOConfig = field(default_factory=PPOConfig)
     task_cfg: TaskConfig | None = None
@@ -72,11 +77,12 @@ class RunConfig:
 
 def run_device(cfg: RunConfig) -> torch.device:
     """The run's device; raises without a card when it is CUDA, and when
-    multi_chip asks for more than one card (no quiet single-card run)."""
+    multi_chip finds more than one card in a process not started by
+    torchrun (no quiet single-card run)."""
     dev = resolve_device(cfg.device)
-    if dev.type == "cuda" and cfg.multi_chip \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(PARALLEL_WAITS)
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cfg.multi_chip and n_cards > 1 and not under_torchrun():
+        raise RuntimeError(launch_message(n_cards))
     return dev
 
 

@@ -128,6 +128,26 @@ Phase 13 the standalone classical walk (eval/walk_standalone.py): the kernel
          C++ libraries built from native/ with this machine's compiler,
          their C++ unit tests, and compile_urdf_native against the port's
          Python URDF compile on the four asset variants.
+Phase 14 data parallelism on the one card (parallel/, viz/,
+         utils/profiling.py): (a) 2 ranks spawned with torch.multiprocessing
+         (the kernel built in the parent first), both on cuda:0 over gloo,
+         train through Runner with multi_chip=True for 3 iterations at PR
+         5's width (kick, substeps 4, the ball, units (400, 200, 100),
+         horizon 32, 4,096 global envs, 2,048 each), the plain engine
+         forbidden: the ranks' parameters and Adam state bit-identical
+         after every iteration, 128 launches per rank per iteration, rank
+         0 alone writing metrics.jsonl; iteration 1 against the
+         single-process update on the concatenated shards (each minibatch
+         the union of the ranks'); ms per iteration split into rollout,
+         update and all_reduce, frames/s per rank and in total against
+         phase 11's; the kernel at B=2048 while the other rank launches
+         too; (d) profile_fn over one rollout step (the substep kernel
+         among the top kernels) and sol_report; (b) data-parallel MPPI at
+         phase 3's configuration, S=64 as 2 x 32, each rank's actions
+         against a single-process solve of its slice with its generator;
+         (c) the viz geometry from card states against the CPU, and the
+         render path without matplotlib raising before the first step
+         (with it, a rendered episode).
 In phases 6, 7, 9, 10, 11, 12 and 13 the env steps are counted at
 BezTask.step_batch, apart from the launch counter, and the launches must be
 exactly the substeps (times H+1 for MPPI) of every step; a tracking
@@ -195,6 +215,335 @@ def graph_ms(torch, ss, tables, x, p, n_launch: int = 20,
 
 OPS = {">=": operator.ge, "<=": operator.le, "==": operator.eq,
        ">": operator.gt, "<": operator.lt}
+
+
+# Phase 14's settings: PR 5's training width, 2 ranks sharing one card.
+P14_RANKS, P14_ENVS, P14_ITERS, P14_SEED = 2, 4096, 3, 42
+P14_MPC_S, P14_MPC_SEED = 64, 140
+
+
+def phase14_rank(rank: int, root: str, out_dir: str) -> dict:
+    """One rank of phase 14's harness (spawned by spawn_ranks, which sets
+    the environment torchrun would): (a) Runner.train with multi_chip=True
+    for P14_ITERS data-parallel PPO iterations on this rank's shard, the
+    plain engine forbidden; after each iteration the ranks' parameters and
+    Adam state are held bit-identical; iteration 1 runs on permutations
+    drawn here and keeps its inputs and output for the parent's
+    single-process check; (d) the profile of one rollout step; (b) the
+    data-parallel MPPI solve of this rank's slice.  Returns CPU tensors
+    and numbers."""
+    sys.path.insert(0, root)
+    import torch
+    import torch.distributed as dist
+
+    from bez_isaacgym_tpu_torch.ops import engine
+    from bez_isaacgym_tpu_torch.ops import substep as ss
+    from bez_isaacgym_tpu_torch.parallel.mesh import (env_sharding,
+                                                      gather_env,
+                                                      rank_generator,
+                                                      replicated)
+    from bez_isaacgym_tpu_torch.parallel.mpc import data_parallel_mpc
+    from bez_isaacgym_tpu_torch.rl import ppo as ppo_mod
+    from bez_isaacgym_tpu_torch.rl.runner import Runner
+    from bez_isaacgym_tpu_torch.solvers.mppi import MPPIConfig, MPPISolver
+    from bez_isaacgym_tpu_torch.tasks.base import TaskConfig, tree_map
+    from bez_isaacgym_tpu_torch.tasks.kick import KickTask
+    from bez_isaacgym_tpu_torch.utils.config import parse_overrides
+    from bez_isaacgym_tpu_torch.utils.profiling import (measure_wall,
+                                                        profile_fn,
+                                                        sol_report)
+
+    def forbidden(*a, **k):
+        raise AssertionError("the plain engine ran on the main path")
+
+    engine.substep = forbidden
+    runner = Runner(parse_overrides([
+        "task=bez_kick", f"num_envs={P14_ENVS}", f"seed={P14_SEED}",
+        "multi_chip=True", "log_frequency=1", "save_frequency=100000",
+        "save_best_after=100000", f"output_dir={out_dir}"]))
+    mesh, dp = runner.mesh, runner.ppo
+    assert mesh is not None and mesh.world == P14_RANKS, mesh
+    dev = mesh.device
+    backend = dist.get_backend(mesh.group)
+    ppo = dp.ppo
+    cpu = lambda tree: tree_map(  # noqa: E731
+        lambda x: x.detach().cpu() if torch.is_tensor(x) else x, tree)
+
+    # Host time inside all_reduce (gloo stages CUDA tensors through the
+    # host; the call returns once the reduced buffer is back).
+    real_all_reduce = dist.all_reduce
+    ar = {"calls": 0, "s": 0.0}
+
+    def timed_all_reduce(*a, **k):
+        t0 = time.perf_counter()
+        out = real_all_reduce(*a, **k)
+        ar["s"] += time.perf_counter() - t0
+        ar["calls"] += 1
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    events = {"rollout": [], "update": [], "iter": []}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        return wrapped
+
+    kept, rows = {}, []
+    real_rollout = ppo.rollout
+    real_clip = ppo_mod.clip_by_global_norm
+
+    def clip(grads, max_norm):
+        # Iteration 1's gradients, averaged over the ranks, step by step.
+        if not rows:
+            kept.setdefault("grads", []).append(cpu(grads))
+        return real_clip(grads, max_norm)
+
+    ppo_mod.clip_by_global_norm = clip
+
+    def rollout(*a, **k):
+        out = real_rollout(*a, **k)
+        if "traj" not in kept:
+            kept["traj"], kept["last_obs"] = cpu(out[2]), cpu(out[1])
+        return out
+
+    ppo.rollout = timed("rollout", rollout)
+    ppo.update = timed("update", ppo.update)
+    real_iter = timed("iter", dp.train_iter)
+
+    def train_iter(ts, env_state, obs, gen):
+        first = not rows
+        perms = None
+        if first:
+            kept["ts0"] = cpu(ts)
+            n_local = ppo.cfg.horizon * ppo.num_envs
+            perms = [torch.randperm(n_local, generator=gen, device=dev)
+                     for _ in range(ppo.cfg.mini_epochs)]
+            kept["perms"] = [p.cpu() for p in perms]
+        ss.substep.launches = 0
+        ar.update(calls=0, s=0.0)
+        t0 = time.perf_counter()
+        ts, env_state, obs, metrics = real_iter(ts, env_state, obs, gen,
+                                                perms=perms)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ss.substep.launches
+        replicated(mesh).check((ts.params, ts.opt_state),
+                               f"iteration {len(rows) + 1}'s parameters and "
+                               f"Adam state")
+        if first:
+            kept["ts1"] = cpu(ts)
+        rows.append({"launches": launches, "allreduce_calls": ar["calls"],
+                     "allreduce_host_ms": 1e3 * ar["s"],
+                     "wall_ms": 1e3 * wall})
+        return ts, env_state, obs, metrics
+
+    dp.train_iter = train_iter
+    dist.barrier()
+    t_run = time.perf_counter()
+    ts = runner.train(P14_ITERS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    dp.train_iter = real_iter
+    ms = {k: [e0.elapsed_time(e1) for e0, e1 in v]
+          for k, v in events.items()}
+
+    # The gradient buffer's all_reduce alone (124,237 parameters and the
+    # KL at units (400, 200, 100)), both ranks at once.
+    flat = torch.cat([v.reshape(-1) for v in ts.params.values()] +
+                     [torch.zeros(1, device=dev)])
+    for _ in range(3):
+        real_all_reduce(flat)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        real_all_reduce(flat)
+    torch.cuda.synchronize()
+    ar_ms = 1e3 * (time.perf_counter() - t0) / 20
+    dist.all_reduce = real_all_reduce
+
+    # The kernel at this rank's B=2048, substeps 4, while the other rank
+    # launches it too.
+    task = runner.task
+    g = torch.Generator(device=dev).manual_seed(1400 + rank)
+    env = task.reset(g, P14_ENVS // P14_RANKS)
+    tg = task._pre_physics(env, 0.3 * torch.randn(
+        (env.physics.q.shape[0], 18), generator=g, device=dev), g)[1]
+    tables = task._step_physics_batch.tables
+    x = ss.pack_state(env.physics)
+    p = ss.pack_params(task.model, env.dyn, tg)
+    for _ in range(5):
+        ss.substep(tables, x, p)
+    torch.cuda.synchronize()
+    dist.barrier()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(50):
+        ss.substep(tables, x, p)
+    e1.record()
+    torch.cuda.synchronize()
+    kernel_ms = e0.elapsed_time(e1) / 50
+    bnd = ss.bound(tables, x)
+
+    # (d) one rollout step of this rank's shard under torch.profiler.
+    obs, env = task.observe(env, torch.zeros_like(tg))
+
+    def rollout_step():
+        mu, log_std, _ = ppo._apply(ts.params, ts.obs_rms, obs)
+        return task.step_batch(env, mu.clamp(-1.0, 1.0), g)
+
+    with torch.no_grad():
+        dist.barrier()
+        ops = profile_fn(rollout_step, (), iters=3)
+        wall_s = measure_wall(rollout_step, (), iters=10)
+    subs = task.cfg.control_freq_inv * task.scene.substeps
+    report = sol_report(wall_s, subs * bnd.flops, subs * bnd.bytes, ops,
+                        top_n=8)
+    step_device_ms = sum(o.total_ms for o in ops)
+    top = [o.name for o in ops[:10]]
+    assert any("bez_substep_kernel" in n for n in top), top
+
+    # (b) data-parallel MPPI at phase 3's configuration, S split over the
+    # ranks; every rank resets all S envs from one seed and keeps its rows.
+    mtask = KickTask(TaskConfig(substeps=2), device=dev)
+    solver = MPPISolver(mtask, MPPIConfig(horizon=32, num_samples=32))
+    envs = env_sharding(mesh)(mtask.reset(torch.Generator(
+        device=dev).manual_seed(P14_MPC_SEED), P14_MPC_S))
+    mpc = data_parallel_mpc(solver, mesh)
+    gen_r = rank_generator(P14_MPC_SEED, mesh)
+    s_local = P14_MPC_S // mesh.world
+    ss.substep.launches = 0
+    act, st, info = mpc(envs, solver.init_state(s_local), gen_r)
+    torch.cuda.synchronize()
+    mpc_launches = ss.substep.launches
+    glob = mpc.gather(act)
+    assert glob.shape == (P14_MPC_S, 18)
+    rows_r = slice(rank * s_local, (rank + 1) * s_local)
+    assert torch.equal(glob[rows_r], act)
+    gathered_again = gather_env(act, mesh)
+    assert torch.equal(gathered_again, glob)
+    dist.barrier()
+    e0.record()
+    n_ticks = 5
+    for _ in range(n_ticks):
+        a_, st, _ = mpc(envs, st, gen_r)
+        envs = mtask.step_batch(envs, a_, gen_r).state
+    e1.record()
+    torch.cuda.synchronize()
+    mpc_ms = e0.elapsed_time(e1) / n_ticks
+    dist.barrier()
+    return {"rank": rank, "backend": backend, "device": str(dev),
+            "run_s": run_s, "rows": rows, "ms": ms, "kept": kept,
+            "ts_final": cpu((ts.params, ts.opt_state)),
+            "allreduce_ms_grad_buffer": ar_ms, "grad_buffer_floats":
+            flat.numel(), "kernel_ms_b2048": kernel_ms,
+            "bound_ms_b2048": bnd.ms, "profile": report, "top_ops": top,
+            "step_wall_ms": 1e3 * wall_s, "step_device_ms": step_device_ms,
+            "mpc_actions": act.cpu(), "mpc_global": glob.cpu(),
+            "mpc_launches": mpc_launches, "mpc_ms_per_tick": mpc_ms,
+            "env_steps_per_iter": ppo.cfg.horizon}
+
+
+def phase14_iteration1(kept: list, task) -> dict:
+    """Phase 14's iteration 1 against the port's single-process update on
+    the concatenated shards: rank r's local sample t * N/2 + e is the
+    global t * N + r * N/2 + e, and each minibatch is the union of the
+    ranks' minibatches.  `kept` holds each rank's iteration-1 inputs, its
+    trajectory, permutations, gradients per step and result; `task` is a
+    kick task on the card.  Returns the differences."""
+    import torch
+
+    from bez_isaacgym_tpu_torch.rl import ppo as ppo_mod
+    from bez_isaacgym_tpu_torch.rl.ppo import PPO, PPOConfig, Transition
+    from bez_isaacgym_tpu_torch.tasks.base import tree_map
+
+    dev = task.device
+    to_dev = lambda tree: tree_map(  # noqa: E731
+        lambda x: x.to(dev) if torch.is_tensor(x) else x, tree)
+    for k_ in kept[1:]:
+        for a_, b_ in zip(kept[0]["ts0"].params.values(),
+                          k_["ts0"].params.values()):
+            assert torch.equal(a_, b_)
+    n_ranks = len(kept)
+    n_local = kept[0]["last_obs"].shape[0]
+    n_envs = n_ranks * n_local
+    ppo1 = PPO(task, n_envs, PPOConfig())
+    ts0 = to_dev(kept[0]["ts0"])
+    traj = Transition(*[torch.cat([getattr(k_["traj"], f) for k_ in kept],
+                                  dim=1).to(dev)
+                        for f in Transition._fields])
+    last_obs = torch.cat([k_["last_obs"] for k_ in kept]).to(dev)
+    mb_local = ppo1.cfg.minibatch_size // n_ranks
+    perms = []
+    for e_ in range(ppo1.cfg.mini_epochs):
+        parts = []
+        for r_, k_ in enumerate(kept):
+            loc = k_["perms"][e_].to(dev)
+            glob_ = (loc // n_local) * n_envs + r_ * n_local + loc % n_local
+            parts.append(glob_[: (loc.numel() // mb_local) * mb_local]
+                         .reshape(-1, mb_local))
+        perms.append(torch.cat(parts, dim=1).reshape(-1))
+    ts1 = ppo1._update_obs_rms(ts0, traj)
+    adv_, ret_ = ppo1.compute_gae(ts1, traj, last_obs)
+    flat_ = Transition(*[x.reshape((-1,) + x.shape[2:]) for x in traj])
+    lrs, grads1 = [], []
+    real_adapt, real_clip = ppo_mod.adapt_lr, ppo_mod.clip_by_global_norm
+
+    def tapped_adapt(lr_, kl_, cfg_):
+        out_ = real_adapt(lr_, kl_, cfg_)
+        lrs.append(float(out_))
+        return out_
+
+    def tapped_clip(grads_, max_norm_):
+        grads1.append(grads_)
+        return real_clip(grads_, max_norm_)
+
+    ppo_mod.adapt_lr, ppo_mod.clip_by_global_norm = tapped_adapt, tapped_clip
+    try:
+        single, _ = ppo1.update(ts1, flat_, adv_.reshape(-1),
+                                ret_.reshape(-1), perms=perms)
+    finally:
+        ppo_mod.adapt_lr, ppo_mod.clip_by_global_norm = real_adapt, real_clip
+    dp1 = to_dev(kept[0]["ts1"])
+
+    def rel(a_, b_):
+        return float((a_ - b_).norm() / b_.norm().clamp_min(1e-30))
+
+    cat = lambda d: torch.cat([v.reshape(-1) for v in d.values()])  # noqa
+    p_dp, p_1, p_0 = cat(dp1.params), cat(single.params), cat(ts0.params)
+    const = single.obs_rms.var < 1e-6
+    w0 = "hidden.0.weight"
+    d_const = (dp1.params[w0] - single.params[w0])[:, const]
+    stats_rel, ratio = {}, 0.0
+    for n_ in ("obs_rms", "value_rms"):
+        for f_ in ("mean", "var"):
+            a_, b_ = getattr(getattr(dp1, n_), f_), getattr(getattr(
+                single, n_), f_)
+            stats_rel[f"{n_}.{f_}"] = float(((a_ - b_).abs() / b_.abs()
+                                             .clamp_min(1e-30)).max())
+            ratio = max(ratio, float(((a_ - b_).abs()
+                                      / (1e-4 * b_.abs() + 1e-6)).max()))
+    return {"grad_steps": [rel(cat(to_dev(g_)), cat(h_)) for g_, h_ in
+                           zip(kept[0]["grads"], grads1)],
+            "stats_rel": stats_rel, "stats_ratio": ratio,
+            "params_rel": rel(p_dp, p_1),
+            "update_rel": rel(p_dp - p_0, p_1 - p_0),
+            "params_max": float((p_dp - p_1).abs().max()),
+            "sum_lr": sum(lrs),
+            "mu_rel": rel(cat(dp1.opt_state.mu), cat(single.opt_state.mu)),
+            "nu_rel": rel(cat(dp1.opt_state.nu), cat(single.opt_state.nu)),
+            "lr": (float(dp1.lr), float(single.lr)),
+            "const_obs": int(const.sum()),
+            "const_share": float((d_const ** 2).sum()
+                                 / ((p_dp - p_1) ** 2).sum())}
 
 
 def main() -> int:
@@ -1915,6 +2264,200 @@ def main() -> int:
     log(f"phase13 s={time.time() - t13:.1f}")
     assert not misses, misses
 
+    # ---------------- phase 14: two ranks sharing the card -----------------
+    t14 = time.time()
+    from bez_isaacgym_tpu_torch.parallel.distributed import spawn_ranks
+    from bez_isaacgym_tpu_torch.parallel.mesh import rank_seed
+    from bez_isaacgym_tpu_torch.viz import render as viz_render
+
+    # (a, b, d) in two spawned ranks on cuda:0 over gloo; the kernel was
+    # built in phase 0, so the ranks load it and build nothing.
+    assert _build.library_path().exists()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = spawn_ranks(phase14_rank, P14_RANKS, str(root), tmp)
+        metric_rows = (Path(tmp) / "Bez_Kick" / "metrics.jsonl").read_text(
+        ).splitlines()
+    # Rank 0 alone logs: one row per iteration.
+    assert [json.loads(r)["iter"] for r in metric_rows] == \
+        list(range(1, P14_ITERS + 1)), metric_rows
+    r0 = res[0]
+    n_local = P14_ENVS // P14_RANKS
+    per_iter = 4 * HORIZON
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+        assert [row["launches"] for row in r["rows"]] == \
+            [per_iter] * P14_ITERS, (r["rank"], r["rows"])
+    # Bit-identical ranks after the last iteration (each rank also checked
+    # every iteration against rank 0 by broadcast).
+    fin = [r["ts_final"] for r in res]
+    for a_, b_ in zip([*fin[0][0].values(), *fin[0][1].mu.values(),
+                       *fin[0][1].nu.values()],
+                      [*fin[1][0].values(), *fin[1][1].mu.values(),
+                       *fin[1][1].nu.values()]):
+        assert torch.equal(a_, b_)
+    log(f"phase14 layout: {P14_RANKS} ranks on one card ({r0['device']}), "
+        f"backend {r0['backend']}, {n_local} envs each ({P14_ENVS} global), "
+        f"kick substeps 4 with the ball, units (400, 200, 100), horizon "
+        f"{HORIZON}, minibatch 32768 global; parameters and Adam state "
+        f"bit-identical on both ranks after each of {P14_ITERS} iterations")
+
+    # Iteration 1 against the single-process update on the concatenated
+    # shards (each minibatch the union of the ranks' minibatches).
+    it1 = phase14_iteration1([r["kept"] for r in res], kick_tr["nominal"])
+    log("phase14 iteration 1 against the single-process update on the "
+        f"concatenated shards ({P14_ENVS} envs, interleaved minibatches): "
+        f"the first step's gradient |dg|/|g|={it1['grad_steps'][0]:.3e}, "
+        "each step's: " + " ".join(f"{e_:.1e}" for e_ in it1["grad_steps"])
+        + f"; running stats max|d| / (1e-4 |x| + 1e-6) = "
+        f"{it1['stats_ratio']:.3f} (" + ", ".join(
+            f"{k_} {v_:.2e}" for k_, v_ in it1["stats_rel"].items())
+        + f"); |dparams|/|params|={it1['params_rel']:.3e} "
+        f"|dupdate|/|update|={it1['update_rel']:.3e} max|dparam|="
+        f"{it1['params_max']:.3e} (the steps' summed lr "
+        f"{it1['sum_lr']:.3e}); Adam mu {it1['mu_rel']:.3e} nu "
+        f"{it1['nu_rel']:.3e}; lr {it1['lr'][0]:.6e} / {it1['lr'][1]:.6e}; "
+        f"share of |dparams|^2 in the first layer's columns of the "
+        f"{it1['const_obs']} observations whose variance is under 1e-6: "
+        f"{it1['const_share']:.4f}")
+    # Each step's gradient differs by the f32 summation order only (2e-5
+    # in norm over minibatches of 32,768 samples); the running stats by
+    # f32 reductions over 131,072 samples in another order (1e-4
+    # relative), Adam's moments likewise (1e-4).  The parameters are held
+    # within twice the sum of the steps' learning rates (the JAX parity
+    # tests' bar): Adam divides each gradient by its own RMS, and an
+    # observation that is constant over the batch is normalized to f32
+    # rounding noise whose sign follows the mean's last bit, so the first
+    # layer's weights on it take full +-lr steps either way.
+    assert max(it1["grad_steps"]) <= 2e-5, it1["grad_steps"]
+    assert it1["stats_ratio"] <= 1.0, it1["stats_rel"]
+    assert it1["mu_rel"] <= 1e-4 and it1["nu_rel"] <= 1e-4, it1
+    assert it1["params_max"] <= 2 * it1["sum_lr"], it1
+    assert it1["lr"][0] == it1["lr"][1], it1["lr"]
+
+    # Time per iteration: steady = iterations 2..; frames/s per rank and
+    # in total against phase 11's single-process run from scratch.
+    keep = list(range(1, P14_ITERS))
+    mean_r = [{k_: sum(r["ms"][k_][i] for i in keep) / len(keep)
+               for k_ in ("rollout", "update", "iter")} for r in res]
+    ar_r = [sum(r["rows"][i]["allreduce_host_ms"] for i in keep) / len(keep)
+            for r in res]
+    fps_r = [n_local * HORIZON / (m_["iter"] / 1e3) for m_ in mean_r]
+    fps_tot = sum(fps_r)
+    for r, m_, a_, f_ in zip(res, mean_r, ar_r, fps_r):
+        log(f"phase14 rank {r['rank']}: steady iteration ms={m_['iter']:.2f}"
+            f" (rollout {m_['rollout']:.2f}, update {m_['update']:.2f}, of "
+            f"which all_reduce host ms {a_:.2f} in "
+            f"{r['rows'][-1]['allreduce_calls']} calls), first iteration ms="
+            f"{r['ms']['iter'][0]:.2f}; frames_per_s={f_:.0f}; substep "
+            f"launches per iteration {[w['launches'] for w in r['rows']]}; "
+            f"run s={r['run_s']:.2f}; all_reduce of the "
+            f"{r['grad_buffer_floats']}-float gradient buffer "
+            f"{r['allreduce_ms_grad_buffer']:.3f} ms")
+    log(f"phase14 two ranks: frames_per_s total={fps_tot:.0f} against "
+        f"phase 11's one process from scratch {sc['fps']:.0f} "
+        f"(iteration {sc['ms']['iter']:.2f} ms): {fps_tot / sc['fps']:.3f}x"
+        f" | {card_line()}")
+    log(f"phase14 kernel B={n_local} substeps=4 while the other rank also "
+        f"launches: " + ", ".join(
+            f"rank {r['rank']} {r['kernel_ms_b2048']:.5f} ms" for r in res)
+        + f" (bound_ms {r0['bound_ms_b2048']:.6f}; one process alone: "
+        f"phase 11's B={B_TR} {p11['nominal']['ms']:.5f}, phase 1's B=2048 "
+        f"at substeps 2 {ms_k64:.5f})")
+    log(f"phase14 profile of one rollout step, rank 0 (B={n_local}, the "
+        f"policy and step_batch):\n{r0['profile']}")
+    log("phase14 rollout step with both ranks on the card: " + ", ".join(
+        f"rank {r['rank']} wall_ms={r['step_wall_ms']:.3f} device_ms="
+        f"{r['step_device_ms']:.3f} idle_share="
+        f"{1 - r['step_device_ms'] / r['step_wall_ms']:.3f}" for r in res)
+        + f" (phase 11's one process: {sc['ms']['rollout'] / HORIZON:.3f} "
+        f"ms per rollout step at B={B_TR})")
+
+    # (b) each rank's MPPI actions against a single-process solve of its
+    # slice with its noise (the rank's generator rebuilt here).
+    mtask1 = KickTask(TaskConfig(substeps=2), device="cuda")
+    msolver = MPPISolver(mtask1, MPPIConfig(horizon=32, num_samples=32))
+    envs_all = mtask1.reset(torch.Generator(device=dev).manual_seed(
+        P14_MPC_SEED), P14_MPC_S)
+    s_local = P14_MPC_S // P14_RANKS
+    err_mpc = 0.0
+    for r in res:
+        rows_ = slice(r["rank"] * s_local, (r["rank"] + 1) * s_local)
+        g_ = torch.Generator(device=dev).manual_seed(
+            rank_seed(P14_MPC_SEED, r["rank"]))
+        a1, _, _ = msolver.solve(tree_map(lambda x: x[rows_], envs_all),
+                                 msolver.init_state(s_local), g_)
+        err_mpc = max(err_mpc, float((a1.cpu() - r["mpc_actions"]).abs()
+                                     .max()))
+        assert torch.equal(r["mpc_global"], res[0]["mpc_global"])
+        assert r["mpc_launches"] == 2 * 32, r["mpc_launches"]
+    assert err_mpc <= 1e-6, err_mpc
+    log(f"phase14 data-parallel MPPI S={P14_MPC_S} = {P14_RANKS} x "
+        f"{s_local}, K=32, H=32, substeps 2: max|rank - single-process "
+        f"solve of its slice| = {err_mpc:.3e}; gathered actions equal on "
+        f"both ranks; ms per tick (solve + step) " + ", ".join(
+            f"rank {r['rank']} {r['mpc_ms_per_tick']:.2f}" for r in res)
+        + f" (phase 3's S=64 in one process {ms_tick:.2f})")
+
+    # (c) viz: skeleton segments and mesh triangles from card states
+    # against the same states on the CPU; the render path without
+    # matplotlib raises before the first step.
+    import importlib.util
+    env_v = kick_tr["nominal"].reset(torch.Generator(device=dev)
+                                     .manual_seed(141), 4)
+    err_viz = 0.0
+    for i in range(4):
+        ph = tree_map(lambda x: x[i], env_v.physics)
+        ph_cpu = tree_map(lambda x: x.cpu(), ph)
+        err_viz = max(err_viz, float(np.abs(
+            viz_render._skeleton(stl, ph) - viz_render._skeleton(stl, ph_cpu)
+        ).max()))
+        tris_k, _ = viz_render._mesh_polys_world(stl, ph)
+        tris_c, _ = viz_render._mesh_polys_world(stl, ph_cpu)
+        assert len(tris_k) == len(tris_c) > 1000
+        err_viz = max(err_viz, float(np.abs(np.stack(tris_k)
+                                            - np.stack(tris_c)).max()))
+    assert err_viz <= 1e-5, err_viz
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    steps_v = [0]
+
+    def counted(self, *a, **k):
+        steps_v[0] += 1
+        return real_step_batch(self, *a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_gif = str(Path(tmp) / "episode.gif")
+        play_v = Runner(parse_overrides([
+            "task=bez_kick", "test=True", "num_envs=4", f"render={out_gif}",
+            f"output_dir={tmp}", "multi_chip=False"]))
+        BezTask.step_batch = counted
+        try:
+            if has_mpl:
+                play_v.play(2)
+                assert Path(out_gif).stat().st_size > 1000
+                viz_what = "matplotlib present: a 2-step episode rendered"
+            else:
+                try:
+                    play_v.play(2)
+                    raise AssertionError("render= without matplotlib ran")
+                except ImportError as e:
+                    assert "matplotlib" in str(e), e
+                assert steps_v[0] == 0, steps_v
+                viz_what = ("no matplotlib here: Runner.play(render=...) "
+                            "raised the ImportError naming it before the "
+                            "first step")
+        finally:
+            BezTask.step_batch = real_step_batch
+    log(f"phase14 viz: skeleton segments and {len(tris_k)} mesh triangles "
+        f"of 4 card states against the CPU, max diff {err_viz:.3e} m; "
+        f"{viz_what}")
+    launches_by_path["dp_ppo_per_rank_3_iterations"] = sum(
+        w["launches"] for w in r0["rows"])
+    p14 = {"B": n_local, "substeps": 4, "ranks_sharing_the_card":
+           P14_RANKS, "launches_per_rank_per_iteration": per_iter,
+           "ms": {f"rank{r['rank']}": r["kernel_ms_b2048"] for r in res},
+           "bound_ms": r0["bound_ms_b2048"]}
+    log(f"phase14 s={time.time() - t14:.1f}")
+
     kernels = [{
         "name": "substep",
         "route": "cuda",
@@ -1938,6 +2481,7 @@ def main() -> int:
         **{f"{m}_{k}": v[m] for k, v in p12.items() for m in ("ms",
                                                              "bound_ms")},
         "walk_standalone": p13,
+        "dp_two_ranks_one_card": p14,
         "launches_by_path": launches_by_path,
         "envs_per_block": lc.envs_per_block,
     }]

@@ -11,7 +11,9 @@ setup(
                                     "bez_isaacgym_tpu_torch*"]),
     package_data={"bez_isaacgym_tpu": ["assets/*.json",
                                        "assets/trajectories/*.json"],
-                  "bez_isaacgym_tpu_torch": ["assets/*.json", "csrc/*"]},
+                  "bez_isaacgym_tpu_torch": ["assets/*.json", "assets/*.npz",
+                                             "assets/trajectories/*.json",
+                                             "csrc/*"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "scipy", "einops",

@@ -316,3 +316,15 @@ def test_sqp_solve_launches_the_kernel_for_every_rollout_substep(cuda):
     finally:
         engine.substep = real
     assert actions.shape == (4, 18) and torch.isfinite(info["cost"]).all()
+
+
+def test_dryrun_multichip_two_ranks_on_cuda(cuda):
+    """One data-parallel PPO iteration over 2 spawned ranks on the card
+    (gloo when they share one card, NCCL with a card each): finite
+    metrics, bit-identical train states."""
+    from bez_isaacgym_tpu_torch.ops import _build
+    from bez_isaacgym_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    _build.load()   # built here, so the ranks only load it
+    metrics = dryrun_multichip(2, "cuda")
+    assert np.isfinite(list(metrics.values())).all()

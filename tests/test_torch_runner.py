@@ -11,7 +11,8 @@ checkpoint writer of the port, against the JAX package's on the CPU.
   runner's keys (run beside it at the same size) and its checkpoints, which
   the port's player, `Runner.play` and a resumed run read back;
 - without a card the entry points raise, as does `multi_chip` with more
-  than one card, and `render`.
+  than one card in a process torchrun did not start (the message gives the
+  torchrun line), and `render` without matplotlib, before the first step.
 """
 
 import dataclasses
@@ -363,25 +364,38 @@ def test_entry_points_raise_without_a_card(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
-def test_multi_chip_with_more_than_one_card_raises():
+def test_multi_chip_with_more_than_one_card_raises(monkeypatch):
+    """Several cards in one process: the launch message with the torchrun
+    line, never a quiet one-card run; under torchrun the ranks go on."""
     cfg = tconfig.parse_overrides(TINY)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with mock.patch.object(torch.cuda, "is_available", return_value=True), \
             mock.patch.object(torch.cuda, "device_count", return_value=4):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(RuntimeError,
+                           match=r"torchrun --nproc-per-node 4 -m "
+                                 r"bez_isaacgym_tpu_torch\.train"):
             tconfig.run_device(cfg)
         single = dataclasses.replace(cfg, multi_chip=False)
         assert tconfig.run_device(single).type == "cuda"
+        monkeypatch.setenv("WORLD_SIZE", "4")
+        assert tconfig.run_device(cfg).type == "cuda"
+        monkeypatch.delenv("WORLD_SIZE")
     with mock.patch.object(torch.cuda, "is_available", return_value=True), \
             mock.patch.object(torch.cuda, "device_count", return_value=1):
         assert tconfig.run_device(cfg).type == "cuda"
 
 
 def test_render_raises_naming_the_viz_item(trained):
+    """Without matplotlib, render= raises an ImportError that names it
+    before the first env step."""
     path = trained["out"] / "port" / "Bez_Kick" / "Bez_Kick_best.ckpt"
     runner = Runner(tconfig.parse_overrides(
         TINY + ["device=cpu", "render=episode.gif", f"checkpoint={path}"]))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        runner.play(1)
+    with mock.patch.dict("sys.modules", {"matplotlib": None}), \
+            mock.patch.object(type(runner.task), "step_batch",
+                              side_effect=AssertionError("stepped")):
+        with pytest.raises(ImportError, match="matplotlib"):
+            runner.play(1)
 
 
 def test_set_seed_returns_a_seeded_generator():

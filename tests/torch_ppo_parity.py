@@ -49,13 +49,13 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def start(jtask, ends: dict):
-    """S JAX reset states (PRNGKey(0)); env i's progress set so that its
+def start(jtask, ends: dict, n: int = S):
+    """n JAX reset states (PRNGKey(0)); env i's progress set so that its
     episode ends by time-out at rollout step ends[i] (1-based); the first
     obs (observe with a zero action, as the runner does).  Returns the
     JAX (state, obs), the port's (state, obs), and the untouched reset
     states (numpy) the fixed auto-reset takes env 0 of."""
-    keys = jax.random.split(jax.random.PRNGKey(0), S)
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
     table = np_tree(jax.jit(jax.vmap(jtask.reset_one))(keys))
     st = jax.tree.map(np.array, table)
     for i, t in ends.items():
@@ -84,13 +84,13 @@ def fixed_resets(jtask, ttask, table):
         yield
 
 
-def draws(key, horizon: int, n_items: int, mini_epochs: int):
-    """The JAX train_iter's rollout noise (H, S, NA) and permutations
-    (mini_epochs, n_items), from its key chain."""
+def draws(key, horizon: int, n_items: int, mini_epochs: int, n: int = S):
+    """The JAX train_iter's rollout noise (H, n, NA) for n envs and
+    permutations (mini_epochs, n_items), from its key chain."""
     noise, perms = [], []
     for _ in range(horizon):
         key, k = jax.random.split(key)
-        noise.append(np.asarray(jax.random.normal(k, (S, NA), jnp.float32)))
+        noise.append(np.asarray(jax.random.normal(k, (n, NA), jnp.float32)))
     for _ in range(mini_epochs):
         key, k = jax.random.split(key)
         perms.append(np.asarray(jax.random.permutation(k, n_items)))
