@@ -1,0 +1,8 @@
+"""Time of one `PPO.update` (rl/ppo.py): CUDA-event span, mean per
+iteration."""
+
+from portbench.readings import span_mean
+
+
+def read(run):
+    return span_mean(run, "update")
