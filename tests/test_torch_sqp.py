@@ -7,9 +7,9 @@ ball far away).  The JAX side runs `TaskConfig(substeps=1,
 use_pallas=False)`, as tests/test_solvers.py sets it up; the port's
 forward rollouts take the task's batched step (the plain engine on the
 CPU) and its linearization the plain engine under torch.func.  Each
-`linearize` mode is held against the same JAX mode; whole solves (S=2,
-H=3) against JAX's; and the behavioural properties of test_solvers.py
-hold on the port.
+`linearize` mode is held against the same JAX mode, and the behavioural
+properties of test_solvers.py hold on the port.  Whole solves (S=2, H=3)
+against JAX's are in tests/test_torch_sqp_solve.py.
 """
 
 import numpy as np
@@ -126,47 +126,6 @@ def test_struct_chains_substeps_like_jax(case):
     jA, jB, tA, tB = _linearize_both(case, "struct", substeps=2)
     np.testing.assert_allclose(tA, jA, atol=1e-4, rtol=1e-3)
     np.testing.assert_allclose(tB, jB, atol=1e-4, rtol=1e-3)
-
-
-# Whole solves: the default, and every option of SQPConfig on at once
-# (the tether, the balance term, the frozen-Jacobian second iteration, the
-# parallel Riccati pass); each JAX solve takes ~50 s to trace on the CPU.
-SOLVES = {
-    "plain": dict(iterations=1),
-    "all_options": dict(iterations=2, warm_reg=0.5, balance_weight=0.6,
-                        relinearize_every=2, parallel_riccati=True),
-}
-
-
-@pytest.fixture(scope="module", params=list(SOLVES))
-def solved(request, case):
-    kw = SOLVES[request.param]
-    U = np.random.default_rng(3).uniform(-0.2, 0.2, (S, H, NA)).astype(
-        np.float32)
-    js = jsqp.SQPSolver(case["jtask"], jsqp.SQPConfig(horizon=H, **kw))
-    ja, jst, jinfo = jax.jit(js.solve)(
-        case["jenv"], jsqp.SQPState(nominal=jnp.asarray(U)))
-    ts = SQPSolver(_port_task(), SQPConfig(horizon=H, **kw))
-    ta, tst, tinfo = ts.solve(case["tenv"],
-                              SQPState(nominal=torch.as_tensor(U)))
-    return (request.param, (np.asarray(ja), np.asarray(jst.nominal),
-                            np.asarray(jinfo["cost"])),
-            (ta.numpy(), tst.nominal.numpy(), tinfo))
-
-
-def test_solve_matches_jax(solved):
-    name, (ja, jnom, jcost), (ta, tnom, tinfo) = solved
-    assert ta.shape == (S, NA) and tnom.shape == (S, H, NA)
-    # The costs decide the line search: 1e-4 relative, so the accepted
-    # step is the same, and then the actions and the shifted nominal are
-    # the same sequences up to f32 rounding of H steps: 1e-4.
-    np.testing.assert_allclose(tinfo["cost"].numpy(), jcost, rtol=1e-4,
-                               atol=1e-6, err_msg=name)
-    np.testing.assert_allclose(ta, ja, atol=1e-4, err_msg=name)
-    np.testing.assert_allclose(tnom, jnom, atol=1e-4, err_msg=name)
-    np.testing.assert_array_equal(tnom[:, -1], tnom[:, -2])
-    acc = tinfo["accepted"].numpy()
-    assert acc.shape == (S,) and np.all((acc >= -1) & (acc < 4))
 
 
 @pytest.mark.parametrize("kw", [dict(iterations=1),
