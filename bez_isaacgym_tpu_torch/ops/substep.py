@@ -309,10 +309,14 @@ def substep(tables: KernelTables, state_in: Tensor,
                                 out.data_ptr(), B, stream)
     if rc != 0:
         raise RuntimeError(f"substep kernel launch failed: cudaError {rc}")
-    substep.launches += 1
+    # A call that a CUDA graph records launches nothing: the graph's
+    # replays launch, and only a device trace sees those.
+    if not torch.cuda.is_current_stream_capturing():
+        substep.launches += 1
     return out
 
 
+# Launches made from Python (not the replays of a captured graph).
 substep.launches = 0
 
 

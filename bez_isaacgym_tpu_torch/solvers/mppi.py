@@ -4,7 +4,10 @@ Port of `bez_isaacgym_tpu/solvers/mppi.py`.  K perturbed action sequences
 per solve are rolled out through the task's batched physics step over an
 H-step horizon (a Python loop over H), scored with the task's reward, and
 softmax-averaged (or the elite sample executed).  All S solves x K samples
-run as ONE flattened physics batch of S*K rollouts.
+run as ONE flattened physics batch of S*K rollouts.  On a CUDA device,
+through the substep kernel and without a policy prior, the H-step rollout
+is one CUDA graph per input shape, captured at its first call and replayed
+after.
 """
 
 from __future__ import annotations
@@ -70,11 +73,30 @@ class MPPIState(NamedTuple):
     nominal: Tensor
 
 
+class _Graph(NamedTuple):
+    """A captured rollout: its static inputs (in `_leaves` order, None where
+    the input has no leaf) and its outputs."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    total: Tensor
+    stab: Tensor
+
+
+def _leaves(tree) -> list:
+    """The leaves of nested tuples in order, None included."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
 class MPPISolver:
     """Batched MPC: solve(env_states, mppi_states, gen) over S solves.
 
     prior_fn: optional policy prior `obs (N, num_obs) -> actions (N, nq)`;
     when set, each rollout runs closed-loop around it.
+    graph_replays counts the replays of the rollout's CUDA graphs (one per
+    input shape, in `_graphs`).
     """
 
     def __init__(self, task: BezTask, cfg: MPPIConfig = MPPIConfig(),
@@ -82,6 +104,8 @@ class MPPISolver:
         self.task = task
         self.cfg = cfg
         self.prior_fn = prior_fn
+        self._graphs: dict = {}
+        self.graph_replays = 0
 
     def init_state(self, num_solves: int) -> MPPIState:
         return MPPIState(nominal=torch.zeros(
@@ -91,7 +115,53 @@ class MPPISolver:
     def _rollout_scores(self, env_states: EnvState, seqs: Tensor,
                         absolute: Tensor | None = None):
         """Total discounted rewards (N,) and the stability indicator (N,)
-        for N flattened rollouts.
+        for N flattened rollouts (`_rollout_eager`).
+
+        On a CUDA device, through the substep kernel and without a prior,
+        the rollout is replayed from a CUDA graph captured at the first call
+        with the same input shapes, dtypes, device and TF32 setting.
+        Otherwise the eager loop runs: a prior is the caller's code and may
+        do host work, and the plain engine makes host constants per call,
+        neither of which a capture allows.
+        """
+        if (self.prior_fn is not None or seqs.device.type != "cuda"
+                or not self.task.cfg.use_kernel):
+            return self._rollout_eager(env_states, seqs, absolute)
+        leaves = _leaves((env_states, seqs))
+        key = (seqs.device, torch.backends.cuda.matmul.allow_tf32,
+               tuple(None if x is None else (x.shape, x.dtype)
+                     for x in leaves))
+        with torch.cuda.device(seqs.device):
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = self._capture(env_states, seqs)
+            for dst, src in zip(g.inputs, leaves):
+                if src is not None:
+                    dst.copy_(src)
+            g.graph.replay()
+        self.graph_replays += 1
+        # Copies: the next replay writes over the graph's outputs.
+        return g.total.clone(), g.stab.clone()
+
+    def _capture(self, env_states: EnvState, seqs: Tensor) -> _Graph:
+        """The rollout on static copies of its inputs, warmed up on a side
+        stream and then captured.  A failed capture raises."""
+        states = tree_map(torch.clone, env_states)
+        seqs = seqs.clone()
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._rollout_eager(states, seqs)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            total, stab = self._rollout_eager(states, seqs)
+        return _Graph(graph, _leaves((states, seqs)), total, stab)
+
+    def _rollout_eager(self, env_states: EnvState, seqs: Tensor,
+                       absolute: Tensor | None = None):
+        """The rollout as a Python loop over the H control steps.
 
         seqs (N, H, nq): absolute actions, or residuals around the policy
         prior; `absolute` (N,) bool marks rollouts whose sequences are

@@ -23,6 +23,11 @@ class KickTask(BezTask):
 
     def __init__(self, cfg: TaskConfig | None = None, device="cuda"):
         super().__init__(cfg or TaskConfig(), device=device)
+        # On the device once: `reward_done` makes no tensor from host data,
+        # so that a CUDA graph can capture it.
+        self._init_xy = torch.as_tensor(self.cfg.bez_init_pos[:2],
+                                        dtype=torch.float32,
+                                        device=self.device)
 
     def observe(self, state: EnvState, action):
         ph = state.physics
@@ -79,25 +84,18 @@ class KickTask(BezTask):
         reward = torch.where(distance_kicked > 0.3, ball_height_vel_pos,
                              ball_vel_height)
 
-        def override(cond, value, reward):
-            return torch.where(cond, torch.as_tensor(value, dtype=f32,
-                                                     device=reward.device),
-                               reward)
-
         done = state.done & False  # fresh reset flags
         # Fall (kick_env.py:1331-1332).
         fell = ph.base_pos[:, 2] < 0.275
-        reward = override(fell, -1.0, reward)
+        reward = torch.where(fell, -1.0, reward)
         done = done | fell
         # Bez out of bound (kick_env.py:1340-1349).
-        init_xy = torch.as_tensor(cfg.bez_init_pos[:2], dtype=f32,
-                                  device=bez_xy.device)
-        oob = norm(bez_xy - init_xy) > 0.5
-        reward = override(oob, -1.0, reward)
+        oob = norm(bez_xy - self._init_xy) > 0.5
+        reward = torch.where(oob, -1.0, reward)
         done = done | oob
         # Ball direction out of bound (kick_env.py:1370-1377).
         angle_oob = goal_angle_diff > 1.5708
-        reward = override(angle_oob, -1.0, reward)
+        reward = torch.where(angle_oob, -1.0, reward)
         done = done | angle_oob
         # Ball reached goal (kick_env.py:1380-1385).
         scored = to_goal_norm < 0.05
@@ -108,6 +106,6 @@ class KickTask(BezTask):
         done = done | scored
         # Horizon (kick_env.py:1388-1391).
         horizon = state.progress >= cfg.max_episode_length
-        reward = override(horizon, 0.0, reward)
+        reward = torch.where(horizon, 0.0, reward)
         done = done | horizon
         return reward, done

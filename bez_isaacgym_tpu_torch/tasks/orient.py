@@ -40,6 +40,11 @@ class OrientTask(BezTask):
 
     def __init__(self, cfg: TaskConfig | None = None, device="cuda"):
         super().__init__(cfg or orient_config(), device=device)
+        # On the device once: `reward_done` makes no tensor from host data,
+        # so that a CUDA graph can capture it.
+        self._init_xy = torch.as_tensor(self.cfg.bez_init_pos[:2],
+                                        dtype=torch.float32,
+                                        device=self.device)
 
     def observe(self, state: EnvState, action):
         ph = state.physics
@@ -91,9 +96,7 @@ class OrientTask(BezTask):
             reward)
         done = done | won
         # Drift from start > 0.3 m -> -5 (orient_env.py:1000-1009).
-        init_xy = torch.as_tensor(cfg.bez_init_pos[:2], dtype=f32,
-                                  device=ph.base_pos.device)
-        drifted = norm(ph.base_pos[:, 0:2] - init_xy) > 0.3
+        drifted = norm(ph.base_pos[:, 0:2] - self._init_xy) > 0.3
         reward = torch.where(drifted, -5.0, reward)
         done = done | drifted
         # Horizon (orient_env.py:1011-1014).

@@ -72,6 +72,25 @@ def profile_fn(fn, args, iters: int = 3) -> list[OpTime]:
     return sorted(ops, key=lambda o: -o.total_ms)
 
 
+def kernel_launches(fn, name: str):
+    """fn() once under torch.profiler: (its result, the launches of the
+    kernels whose name holds `name`).  On a card these are the device trace's
+    kernels, so a CUDA graph's replays count; without one, the operators
+    that ran on the CPU."""
+    dev = _device_type()
+    acts = [ProfilerActivity.CUDA if dev == "cuda" else ProfilerActivity.CPU]
+    want = torch.autograd.DeviceType.CUDA if dev == "cuda" \
+        else torch.autograd.DeviceType.CPU
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        out = fn()
+        _sync(dev)
+    # The raw events: a long call's millions of kernels would take minutes
+    # and tens of GB as the profiler's parsed event tree.
+    return out, sum(1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == want and name in e.name())
+
+
 def measure_wall(fn, args, iters: int = 10) -> float:
     """Median seconds per call after a warm-up call: CUDA events around
     each call on a card, `time.perf_counter` on the CPU."""

@@ -20,9 +20,10 @@ Phase 2  standing balance on the kernel: 180 control steps from the ready
          pose (mean height within 0.015 of 0.325, base_quat.w > 0.99).
 Phase 3  the main path: KickTask(substeps=2) + MPPISolver(H=32, K=32), one
          solve at S=256, then 20 chained closed-loop ticks (solve, then
-         step_batch) at S=64, with the launch counter read around the ticks
-         and the plain engine disabled; one step_batch through the kernel
-         checked against the plain engine on the card.
+         step_batch) at S=64 under torch.profiler, the substep kernels in
+         its device trace counted (the solves replay CUDA graphs), and 20
+         more timed without it; the plain engine disabled; one step_batch
+         through the kernel checked against the plain engine on the card.
 Phase 4  where a tick's time goes: torch.profiler over 3 ticks at S=64,
          device time by kernel against the wall clock.
 Phase 5  the kernel at substeps=4, the trained controllers' configuration:
@@ -151,7 +152,10 @@ Phase 14 data parallelism on the one card (parallel/, viz/,
 In phases 6, 7, 9, 10, 11, 12 and 13 the env steps are counted at
 BezTask.step_batch, apart from the launch counter, and the launches must be
 exactly the substeps (times H+1 for MPPI) of every step; a tracking
-drive's steps must be its plan's length.
+drive's steps must be its plan's length.  The launch counter counts
+launches from Python: where an MPPI rollout replays its CUDA graph (no
+policy prior), the launches are the substep kernels in torch.profiler's
+device trace.
 Timings are CUDA-event times on this card.  Every phase asserts; any
 failure exits non-zero.  The last line is the run's result as JSON.
 """
@@ -249,7 +253,8 @@ def phase14_rank(rank: int, root: str, out_dir: str) -> dict:
     from bez_isaacgym_tpu_torch.tasks.base import TaskConfig, tree_map
     from bez_isaacgym_tpu_torch.tasks.kick import KickTask
     from bez_isaacgym_tpu_torch.utils.config import parse_overrides
-    from bez_isaacgym_tpu_torch.utils.profiling import (measure_wall,
+    from bez_isaacgym_tpu_torch.utils.profiling import (kernel_launches,
+                                                        measure_wall,
                                                         profile_fn,
                                                         sol_report)
 
@@ -420,10 +425,11 @@ def phase14_rank(rank: int, root: str, out_dir: str) -> dict:
     mpc = data_parallel_mpc(solver, mesh)
     gen_r = rank_generator(P14_MPC_SEED, mesh)
     s_local = P14_MPC_S // mesh.world
-    ss.substep.launches = 0
-    act, st, info = mpc(envs, solver.init_state(s_local), gen_r)
-    torch.cuda.synchronize()
-    mpc_launches = ss.substep.launches
+    # The substep kernels in the device trace of the first solve: the eager
+    # warm-up's and the replay's of the captured rollout.
+    (act, st, info), mpc_launches = kernel_launches(
+        lambda: mpc(envs, solver.init_state(s_local), gen_r),
+        "bez_substep_kernel")
     glob = mpc.gather(act)
     assert glob.shape == (P14_MPC_S, 18)
     rows_r = slice(rank * s_local, (rank + 1) * s_local)
@@ -574,6 +580,7 @@ def main() -> int:
     from bez_isaacgym_tpu_torch.tasks.base import (BezTask, TaskConfig,
                                                    tree_map)
     from bez_isaacgym_tpu_torch.tasks.kick import KickTask
+    from bez_isaacgym_tpu_torch.utils.profiling import kernel_launches
 
     dev = resolve_device("cuda")
     t_start = time.time()
@@ -802,9 +809,13 @@ def main() -> int:
         env = task.reset(gen, S_TP)
         mppi = solver.init_state(S_TP)
         ss.substep.launches = 0
-        act, mppi2, info = solver.solve(env, mppi, gen)
-        torch.cuda.synchronize()
+        # A shape's first solve warms its rollout up eagerly, captures it
+        # (which launches nothing) and replays the graph: Python launches
+        # H x substeps, the device trace holds twice as many.
+        (act, mppi2, info), traced = kernel_launches(
+            lambda: solver.solve(env, mppi, gen), "bez_substep_kernel")
         assert ss.substep.launches == H * cfg2.substeps, ss.substep.launches
+        assert traced == 2 * H * cfg2.substeps, traced
         assert act.shape == (S_TP, 18) and torch.isfinite(act).all()
         assert torch.isfinite(info["best_score"]).all()
         ms_solve = cuda_ms(torch, lambda: solver.solve(env, mppi2, gen),
@@ -815,23 +826,35 @@ def main() -> int:
 
         S_LAT, N_TICKS = 64, 20
         env = task.reset(gen, S_LAT)
-        mppi = solver.init_state(S_LAT)
-        torch.cuda.synchronize()
+        # One solve captures the S=64 rollout before the counted ticks.
+        act, mppi, info = solver.solve(env, solver.init_state(S_LAT), gen)
+
+        def run_ticks(env, mppi):
+            for _ in range(N_TICKS):
+                act, mppi, info = solver.solve(env, mppi, gen)
+                out = task.step_batch(env, act, gen)
+                env = out.state
+            return env, mppi, act, info, out
+
+        # The launches: the substep kernels in the device trace of 20 ticks,
+        # each a replay of the solve's graph and the step's launches.
         ss.substep.launches = 0
+        (env, mppi, act, info, out), launches = kernel_launches(
+            lambda: run_ticks(env, mppi), "bez_substep_kernel")
+        expect = N_TICKS * (H * cfg2.substeps + cfg2.substeps)
+        assert launches == expect, (launches, expect)
+        # From Python, only the steps launch.
+        assert ss.substep.launches == N_TICKS * cfg2.substeps, \
+            ss.substep.launches
+        # The time: 20 more ticks, without the profiler.
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         t_host = time.time()
         e0.record()
-        for _ in range(N_TICKS):
-            act, mppi, info = solver.solve(env, mppi, gen)
-            out = task.step_batch(env, act, gen)
-            env = out.state
+        env, mppi, act, info, out = run_ticks(env, mppi)
         e1.record()
         torch.cuda.synchronize()
         t_host = time.time() - t_host
-        launches = ss.substep.launches
-        expect = N_TICKS * (H * cfg2.substeps + cfg2.substeps)
-        assert launches == expect, (launches, expect)
         assert torch.isfinite(act).all() and act.shape == (S_LAT, 18)
         assert torch.isfinite(info["best_score"]).all()
         assert torch.isfinite(out.reward).all()
@@ -839,7 +862,8 @@ def main() -> int:
         ms_tick = e0.elapsed_time(e1) / N_TICKS
         log(f"phase3 latency S={S_LAT}: {N_TICKS} chained ticks, "
             f"ms_per_tick={ms_tick:.2f} (host clock {1e3 * t_host / N_TICKS:.2f}"
-            f"), launches={launches} (expected {expect}), "
+            f"), launches={launches} in the device trace of the {N_TICKS} "
+            f"ticks before (expected {expect}), "
             f"mean height {float(env.physics.base_pos[:, 2].mean()):.4f}, "
             f"done {int(out.done.sum())}/{S_LAT}")
     finally:
@@ -941,14 +965,19 @@ def main() -> int:
         return [tree]
 
     def run_eval(phase, label, fn, per_tick, bars, max_ticks=None,
-                 ticks_expected=None, num_envs=64):
+                 ticks_expected=None, num_envs=64, graph_warmup=None):
         """One eval through its entry point, the launch counter set to 0
         just before and read just after; bars: [(metric, op, bound)].
 
         The env steps (ticks) are counted apart from the launches, at
         `BezTask.step_batch`, and the launches must be exactly per_tick
         for each: the kernel ran every substep of every tick, and nothing
-        else launched it."""
+        else launched it.  Where the eval's MPPI rollout replays a CUDA
+        graph, the counter sees none of the replays: the eval then runs a
+        second time, the same ticks, under torch.profiler, and the
+        launches are the substep kernels in its device trace, per_tick for
+        each tick plus `graph_warmup`, the eager warm-up's before the one
+        capture.  The time and the bars are the first run's."""
         ticks_run = [0]
 
         def counted_step_batch(self, *a, **k):
@@ -968,19 +997,26 @@ def main() -> int:
             torch.cuda.synchronize()
             secs = time.time() - t0
             n = ss.substep.launches
+            if graph_warmup is not None:
+                ticks, ticks_run[0] = ticks_run[0], 0
+                _, n = kernel_launches(fn, "bez_substep_kernel")
+                assert ticks_run[0] == ticks, (label, ticks_run[0], ticks)
         finally:
             BezTask.step_batch = real_step_batch
         ticks = ticks_run[0]
-        assert ticks > 0 and n == per_tick * ticks, (label, n, per_tick,
-                                                     ticks)
+        assert ticks > 0 and n == per_tick * ticks + (graph_warmup or 0), (
+            label, n, per_tick, ticks, graph_warmup)
         if max_ticks is not None:
             assert ticks <= max_ticks, (label, ticks, max_ticks)
         if ticks_expected is not None:
             assert ticks == ticks_expected, (label, ticks, ticks_expected)
         ms_tick = e0.elapsed_time(e1) / ticks
         log(f"{phase} {label}: {json.dumps(res)}")
+        traced_ = "" if graph_warmup is None else (
+            f" + {graph_warmup} of the warm-up, in the device trace of a "
+            f"second run")
         log(f"{phase} {label}: s={secs:.2f} ticks={ticks} launches={n} "
-            f"(= {per_tick} per tick x {ticks} ticks) ms_per_tick="
+            f"(= {per_tick} per tick x {ticks} ticks{traced_}) ms_per_tick="
             f"{ms_tick:.3f} (CUDA events around the whole eval call, set-up "
             f"included) | {card_line()}")
         nums = [v for v in res.values()
@@ -1067,7 +1103,8 @@ def main() -> int:
                      terminal_balance_weight=5.0, **common),
                  4 * 33, [("success_rate", ">=", 0.42),
                           ("kicked_rate", ">=", 0.82),
-                          ("fall_rate", "<=", 0.08)], max_ticks=600)
+                          ("fall_rate", "<=", 0.08)], max_ticks=600,
+                 graph_warmup=4 * 32)
 
         # ------------ phase 7: where a prior tick's time goes -------------
         # The prior runs inside every rollout step: observe + the policy
@@ -2000,7 +2037,7 @@ def main() -> int:
                                  temperature=0.05, substeps=2,
                                  use_sqp=True),
                              2 * (32 + 2 * 32 + 1), [], max_ticks=20,
-                             num_envs=16)
+                             num_envs=16, graph_warmup=2 * 32)
         finally:
             SQPSolver.solve = real_sqp_solve
         hyb = HybridSolver(kick2, MPPIConfig(horizon=32, num_samples=32,
@@ -2389,7 +2426,7 @@ def main() -> int:
         err_mpc = max(err_mpc, float((a1.cpu() - r["mpc_actions"]).abs()
                                      .max()))
         assert torch.equal(r["mpc_global"], res[0]["mpc_global"])
-        assert r["mpc_launches"] == 2 * 32, r["mpc_launches"]
+        assert r["mpc_launches"] == 2 * 2 * 32, r["mpc_launches"]
     assert err_mpc <= 1e-6, err_mpc
     log(f"phase14 data-parallel MPPI S={P14_MPC_S} = {P14_RANKS} x "
         f"{s_local}, K=32, H=32, substeps 2: max|rank - single-process "

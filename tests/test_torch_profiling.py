@@ -5,7 +5,9 @@ on the CPU, against the JAX package's `utils/profiling.py`:
   largest first (on the CPU, torch.profiler's CPU self times);
 - `measure_wall` is the median of the timed calls;
 - `chip_peaks` picks a device's peaks by name, the CPU entry otherwise;
-- `sol_report` prints the JAX version's text for the same numbers.
+- `sol_report` prints the JAX version's text for the same numbers;
+- `kernel_launches` counts the named kernels of one call (on the CPU, its
+  operators).
 """
 
 import pytest
@@ -67,3 +69,16 @@ def test_sol_report_is_the_jax_text():
         got = profiling.sol_report(0.0125, 3.0e9, 2.0e8, ops, top_n=1)
     assert got == want
     assert got.splitlines()[-1].endswith("bez_substep_kernel")
+
+
+@pytest.mark.parametrize("name,want", [("aten::mm", 3),
+                                       ("no_such_kernel", 0)])
+def test_kernel_launches_counts_the_named_ops_of_one_call(name, want):
+    a = torch.randn(64, 64)
+
+    def fn():
+        for _ in range(3):
+            torch.relu(a @ a)
+        return "out"
+
+    assert profiling.kernel_launches(fn, name) == ("out", want)
