@@ -56,7 +56,9 @@ class HybridSolver:
               gen: torch.Generator | None = None,
               noise: Tensor | None = None):
         """MPPI, then the SQP polish of its nominal.  `noise` (S, K, H, nu)
-        replaces MPPI's draw from `gen`."""
+        replaces MPPI's draw from `gen`.  With the SQP stage, info holds
+        MPPI's and the SQP's entries and "mppi_nominal", the (S, H, nu)
+        sequence the MPPI stage handed the SQP."""
         _, mppi_state, info = self.mppi.solve(env_states, state.mppi, gen,
                                               noise=noise)
         if not self.use_sqp:
@@ -64,7 +66,9 @@ class HybridSolver:
                     HybridState(mppi=mppi_state, sqp=state.sqp), info)
         actions, sqp_state, sqp_info = self.sqp.solve(
             env_states, SQPState(nominal=mppi_state.nominal))
-        info = {**info, **sqp_info}
+        # The nominal MPPI handed the SQP, so the two stages can be held
+        # apart (a reference to the tensor, not a copy).
+        info = {**info, **sqp_info, "mppi_nominal": mppi_state.nominal}
         # The polished sequence is next round's sampling nominal.
         new_state = HybridState(mppi=MPPIState(nominal=sqp_state.nominal),
                                 sqp=sqp_state)
